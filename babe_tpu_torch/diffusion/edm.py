@@ -1,11 +1,16 @@
 """EDM diffusion parameterization (Karras et al. 2022) in PyTorch.
 
-Counterpart of ``babe_tpu/diffusion/edm.py`` for sampling: the
-preconditioning (cskip, cout, cin, cnoise), the denoiser
-D(x) = cskip x + cout net(cin x, cnoise), the rho-schedule with the
-reference's (nb_steps-1) divisor and t[-1] = 0, the warm-start schedule and
-the per-step stochasticity gamma.  Schedules are computed in float32, as the
-JAX package computes them.
+Counterpart of ``babe_tpu/diffusion/edm.py``: the preconditioning (cskip,
+cout, cin, cnoise), the denoiser D(x) = cskip x + cout net(cin x, cnoise),
+the rho-schedule with the reference's (nb_steps-1) divisor and t[-1] = 0,
+the warm-start schedule and the per-step stochasticity gamma; and the
+training half: training-sigma sampling (the schedule distribution with
+ro_train, or lognormal), the prior, the training preconditioning and the
+per-sample loss with the optional CQT DC correction.  Schedules are computed
+in float32, as the JAX package computes them.  Random draws take an explicit
+``torch.Generator`` (drawn on its device); the JAX package's ``jax.random``
+keys give other numbers, so a test hands both sides the same sigma and
+noise.
 """
 
 from __future__ import annotations
@@ -51,8 +56,9 @@ class EDMParams:
 
 
 class EDM:
-    """EDM preconditioning and schedules.  A ``net`` given to
-    :meth:`denoiser` is any callable ``net(x[B,T], cnoise[B,1])``."""
+    """EDM preconditioning, schedules and training loss.  A ``net`` given
+    to :meth:`denoiser` or :meth:`loss_fn` is any callable
+    ``net(x[B,T], cnoise[B,1])``."""
 
     def __init__(self, p: EDMParams, cqt_hpf=None):
         self.p = p
@@ -63,7 +69,8 @@ class EDM:
         dp = args.diff_params
         if bool(dp.get_path("aweighting.use_aweighting", False)):
             raise NotImplementedError(
-                "A-weighted EDM loss is not ported yet (training slice)")
+                "A-weighted EDM loss is not ported yet: it needs ops/fir.py "
+                "(ROADMAP.md)")
         return cls(EDMParams.from_config(dp), cqt_hpf=cqt_hpf)
 
     # ------------------------------------------------------------ precond
@@ -121,3 +128,49 @@ class EDM:
         g = min(p.Schurn / t.shape[0], 2**0.5 - 1)
         return torch.where(inside, torch.tensor(g, dtype=torch.float32),
                            torch.tensor(0.0))
+
+    # ------------------------------------------------------------ training
+
+    def sample_ptrain_safe(self, gen: torch.Generator, N: int) -> torch.Tensor:
+        """sigma ~ the schedule distribution with ro_train: (N,) float32 on
+        the generator's device."""
+        p = self.p
+        a = torch.rand((N,), generator=gen, device=gen.device)
+        hi, lo = p.sigma_max ** (1 / p.ro_train), p.sigma_min ** (1 / p.ro_train)
+        return (hi + a * (lo - hi)) ** p.ro_train
+
+    def sample_ptrain_lognormal(self, gen: torch.Generator,
+                                N: int) -> torch.Tensor:
+        """Karras lognormal sigma, clipped to [sigma_min, sigma_max]."""
+        p = self.p
+        ln = torch.randn((N,), generator=gen, device=gen.device) * p.P_std \
+            + p.P_mean
+        return torch.clamp(torch.exp(ln), p.sigma_min, p.sigma_max)
+
+    def sample_prior(self, gen: torch.Generator, shape, sigma) -> torch.Tensor:
+        return torch.randn(shape, generator=gen, device=gen.device) * sigma
+
+    def prepare_train_preconditioning(self, gen, x, sigma, noise=None):
+        """(input, target, cnoise) for sigma [B,1]; ``noise`` (the prior
+        draw, already scaled by sigma) is drawn from ``gen`` when not
+        given."""
+        if noise is None:
+            noise = self.sample_prior(gen, x.shape, sigma).to(x.device)
+        cskip, cout, cin = self.cskip(sigma), self.cout(sigma), self.cin(sigma)
+        target = (1.0 / cout) * (x - cskip * (x + noise))
+        return cin * (x + noise), target, self.cnoise(sigma)
+
+    def loss_fn(self, gen, net, x, use_cqt_DC_correction: bool = False,
+                sigma=None, noise=None):
+        """Per-sample squared error [B,T] and the sigmas [B,1] used.
+        ``sigma`` and ``noise`` are drawn from ``gen`` (sigma first) unless
+        given."""
+        if sigma is None:
+            sigma = self.sample_ptrain_safe(gen, x.shape[0])[:, None]
+        sigma = sigma.to(x.device)
+        inp, target, cnoise = self.prepare_train_preconditioning(
+            gen, x, sigma, noise)
+        error = net(inp, cnoise) - target
+        if use_cqt_DC_correction and self.cqt_hpf is not None:
+            error = self.cqt_hpf(error)
+        return error**2, sigma

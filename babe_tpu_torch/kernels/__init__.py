@@ -6,12 +6,15 @@ library name carries a hash of the sources, so an edited kernel rebuilds and
 a stale build is never picked up.  ``build()`` starts one ``nvcc`` per source,
 all at once.
 
-Seven kernels: ``conv5x3`` (K1, ``csrc/conv5x3.cu``), ``fused_stage`` (K2)
+Ten kernels: ``conv5x3`` (K1, ``csrc/conv5x3.cu``), ``fused_stage`` (K2)
 and ``fused_stage_bwd`` (K2's backward), both in ``csrc/fused_stage.cu``,
 ``filter_fit`` (the blind sampler's filter fit, ``csrc/filter_fit.cu``),
 ``fused_stage_int8`` (K3, the int8 stage, ``csrc/fused_stage_int8.cu``),
-and the int8 probe's ``probe_gemm`` (P1) and ``probe_stage`` (P2), both in
-``csrc/probe_int8.cu``.  The launchers here take tensors, check them,
+the int8 probe's ``probe_gemm`` (P1) and ``probe_stage`` (P2), both in
+``csrc/probe_int8.cu``, ``dilated_conv`` (K4, any odd kernel and both
+dilations, ``csrc/dilated_conv.cu``), and the weight gradients
+``conv_dw`` (of K1 and K4) and ``fused_stage_dw`` (of K2), both in
+``csrc/conv_dw.cu``.  The launchers here take tensors, check them,
 launch on PyTorch's current stream and raise when the launch status is not
 ``cudaSuccess``.  They count their launches in ``LAUNCHES``; nothing else
 touches the counts.
@@ -51,6 +54,11 @@ KERNELS = {
                    + [_P]),
     "probe_stage": ("probe_int8", "babe_probe_stage", [_P] * 3 + [_I] * 9
                     + [_P]),
+    "dilated_conv": ("dilated_conv", "babe_dilated_conv",
+                     [_P] * 4 + [_I] * 10 + [_P]),
+    "conv_dw": ("conv_dw", "babe_conv_dw", [_P] * 3 + [_I] * 10 + [_P]),
+    "fused_stage_dw": ("conv_dw", "babe_fused_stage_dw",
+                       [_P] * 7 + [_I] * 6 + [_P]),
 }
 SOURCES = tuple(sorted({src for src, _, _ in KERNELS.values()}))
 
@@ -157,9 +165,10 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def tap_major(w: torch.Tensor) -> torch.Tensor:
-    """(5, 3, C, N) HWIO -> (15, N, C): the tensor-core tile's layout."""
-    return w.permute(0, 1, 3, 2).reshape(15, w.shape[3], w.shape[2]) \
-        .contiguous()
+    """(KF, KT, C, N) HWIO -> (KF*KT, N, C): the tensor-core tile's
+    layout."""
+    kf, kt, C, N = w.shape
+    return w.permute(0, 1, 3, 2).reshape(kf * kt, N, C).contiguous()
 
 
 def launch_conv5x3(x: torch.Tensor, w: torch.Tensor, d: int) -> torch.Tensor:
@@ -342,3 +351,81 @@ def launch_probe_stage(h: torch.Tensor, wt: torch.Tensor, BF: int, BT: int,
     _status("probe_stage", rc)
     LAUNCHES["probe_stage"] += 1
     return out
+
+
+def launch_dilated_conv(x: torch.Tensor, w: torch.Tensor,
+                        dilation) -> torch.Tensor:
+    """K4 on the card: x (B,F,T,C), w (KF,KT,C,N) of x's dtype with odd
+    KF, KT <= 7, dilation (df, dt) -> (B,F,T,N)."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"dilated_conv: unsupported dtype {x.dtype}")
+    _check(x, "dilated_conv x")
+    B, F, T, C = x.shape
+    if w.dim() != 4 or w.shape[2] != C:
+        raise ValueError(f"dilated_conv: w must be (KF,KT,{C},N), got "
+                         f"{tuple(w.shape)}")
+    kf, kt, _, N = w.shape
+    df, dt = (int(v) for v in dilation)
+    if not (kf % 2 == 1 and kt % 2 == 1 and kf <= 7 and kt <= 7
+            and df >= 1 and dt >= 1):
+        raise ValueError(f"dilated_conv: kernel ({kf},{kt}) dilation "
+                         f"({df},{dt}) not supported (odd sizes up to 7)")
+    _check(w, "dilated_conv w", x.dtype)
+    y = torch.empty((B, F, T, N), dtype=x.dtype, device=x.device)
+    fn = _entry("dilated_conv")
+    wt = tap_major(w)
+    rc = fn(x.data_ptr(), w.data_ptr(), wt.data_ptr(), y.data_ptr(), B, F, T,
+            C, N, kf, kt, df, dt, _DTYPES[x.dtype], _stream(x))
+    _status("dilated_conv", rc)
+    LAUNCHES["dilated_conv"] += 1
+    return y
+
+
+def launch_conv_dw(x: torch.Tensor, g: torch.Tensor, kshape,
+                   dilation) -> torch.Tensor:
+    """The weight gradient of a 'SAME' conv on the card: x (B,F,T,C) the
+    conv's input, g (B,F,T,N) its output cotangent, both of one dtype.
+    Returns dW (KF,KT,C,N) in fp32."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"conv_dw: unsupported dtype {x.dtype}")
+    _check(x, "conv_dw x")
+    B, F, T, C = x.shape
+    if g.dim() != 4 or tuple(g.shape[:3]) != (B, F, T):
+        raise ValueError(f"conv_dw: g must be ({B},{F},{T},N), got "
+                         f"{tuple(g.shape)}")
+    _check(g, "conv_dw g", x.dtype)
+    kf, kt = (int(v) for v in kshape)
+    df, dt = (int(v) for v in dilation)
+    N = g.shape[3]
+    dw = torch.zeros((kf, kt, C, N), dtype=torch.float32, device=x.device)
+    fn = _entry("conv_dw")
+    rc = fn(x.data_ptr(), g.data_ptr(), dw.data_ptr(), B, F, T, C, N, kf, kt,
+            df, dt, _DTYPES[x.dtype], _stream(x))
+    _status("conv_dw", rc)
+    LAUNCHES["conv_dw"] += 1
+    return dw
+
+
+def launch_fused_stage_dw(x, a, s, y, g_y, g_mom, d: int) -> torch.Tensor:
+    """The weight gradient of one K2 stage on the card: the conv input is
+    gelu(x*a) and the conv output's cotangent g_pre*s, both formed in the
+    kernel from the stage's input x, output y and the cotangents g_y, g_mom
+    (see ``ops/conv_kernels.dil_stage_dw_ref``).  Returns dW (5,3,C,C)
+    fp32."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"fused_stage_dw: unsupported dtype {x.dtype}")
+    _check(x, "fused_stage_dw x")
+    B, F, T, C = x.shape
+    for t, what in ((y, "y"), (g_y, "g_y")):
+        _check(t, f"fused_stage_dw {what}", x.dtype, (B, F, T, C))
+    _check(a, "fused_stage_dw a", torch.float32, (B, C))
+    _check(s, "fused_stage_dw s", torch.float32, (B, C))
+    _check(g_mom, "fused_stage_dw g_mom", torch.float32, (2, B, C))
+    dw = torch.zeros((5, 3, C, C), dtype=torch.float32, device=x.device)
+    fn = _entry("fused_stage_dw")
+    rc = fn(x.data_ptr(), a.data_ptr(), s.data_ptr(), y.data_ptr(),
+            g_y.data_ptr(), g_mom.data_ptr(), dw.data_ptr(), B, F, T, C,
+            int(d), _DTYPES[x.dtype], _stream(x))
+    _status("fused_stage_dw", rc)
+    LAUNCHES["fused_stage_dw"] += 1
+    return dw

@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from babe_tpu_torch.kernels import tap_major
+from babe_tpu_torch.ops.pallas_conv import dilated_conv_nhwc
 from babe_tpu_torch.ops.conv_kernels import (
     conv1x1,
     conv5x3_dilated,
@@ -90,19 +91,22 @@ class _ConvParams(nn.Module):
 
 
 class Conv2d(nn.Module):
-    """'SAME' 2-D conv on (B, F, T, C), kernel (kf, kt), dilation along F.
-
-    (1,1) kernels are matmuls (``conv1x1``); (5,3) kernels with dilation
-    (d,1) go through ``conv5x3_dilated`` (kernel K1 on CUDA)."""
+    """'SAME' 2-D conv on (B, F, T, C), odd kernel (kf, kt), dilation
+    (df, dt), dispatched as the JAX ``conv2d_same`` does: (1,1) kernels are
+    matmuls (``conv1x1``); (5,3) kernels with dilation (d,1) go through
+    ``conv5x3_dilated`` (kernel K1 on CUDA); every other kernel through
+    ``dilated_conv_nhwc`` (kernel K4 on CUDA)."""
 
     def __init__(self, in_features: int, features: int, kernel=(1, 1),
                  dilation=(1, 1), use_bias: bool = False,
                  init_weight: float = INIT_W):
         super().__init__()
-        kernel, dilation = tuple(kernel), tuple(dilation)
-        if kernel not in ((1, 1), (5, 3)) or dilation[1] != 1:
+        kernel = tuple(int(k) for k in kernel)
+        dilation = tuple(int(d) for d in dilation)
+        if kernel[0] % 2 == 0 or kernel[1] % 2 == 0:
             raise NotImplementedError(
-                f"Conv2d: kernel {kernel} dilation {dilation} is not ported")
+                f"Conv2d: kernel {kernel}: only odd kernels are ported "
+                "('SAME' padding is symmetric)")
         self.kernel_size, self.dilation = kernel, dilation
         self.init_weight = init_weight
         self.conv = _ConvParams((*kernel, in_features, features), features,
@@ -121,8 +125,10 @@ class Conv2d(nn.Module):
         k = self.conv.kernel.to(x.dtype)
         if self.kernel_size == (1, 1):
             y = conv1x1(x, k)
-        else:
+        elif self.kernel_size == (5, 3) and self.dilation[1] == 1:
             y = conv5x3_dilated(x, k, self.dilation[0])
+        else:
+            y = dilated_conv_nhwc(x, k, self.dilation)
         if self.conv.bias is not None:
             y = y + self.conv.bias.to(y.dtype)
         return y
@@ -219,8 +225,9 @@ class ResnetBlock(nn.Module):
 
     (5,3) blocks with norm run the fused dilation chain (one ``fused_stage``
     per dilation, or one ``fused_stage_int8`` when the block is in int8);
-    (1,1) blocks run the plain loop GroupNorm -> sigma affine -> gelu ->
-    1x1 conv -> gated residual."""
+    every other block runs the plain loop GroupNorm -> sigma affine ->
+    gelu -> conv -> gated residual (a 1x1 matmul, or K4 for other
+    kernels)."""
 
     def __init__(self, dim: int, dim_out: int, use_norm: bool = True,
                  num_dils: int = 6, kernel_size=(5, 3), emb_dim: int = 256,

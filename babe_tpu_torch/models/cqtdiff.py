@@ -10,6 +10,12 @@ Counterpart of ``babe_tpu/models/cqtdiff.py``:
 Layout is channels-last (B, F, T, C); the octave list is ordered lowest
 octave first and consumed highest first, as in the JAX package.
 
+``remat`` rematerializes every ``ResnetBlock`` in the backward pass (the
+JAX ``nn.remat`` of the block, policy "full"): under autograd each block
+runs through ``torch.utils.checkpoint`` (non-reentrant), so only block
+boundaries are kept and each block's forward runs again in the backward.
+Training at the flagship config uses it; serving does not.
+
 ``precision`` is an attribute of the network: ``"int8"`` puts every fused
 (5,3) dilation stack with at least ``INT8_MINC`` channels (96, the JAX
 package's default) in int8, the configuration ``BABE_PRECISION=int8
@@ -25,6 +31,7 @@ from typing import Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from babe_tpu_torch.models.blocks import (
     INV_SQRT2,
@@ -56,8 +63,14 @@ class CQTDiffPlusNet(nn.Module):
                  attention_layers: Sequence[int] = (0,) * 8,
                  attention_dict=None, num_bottleneck_layers: int = 1,
                  compute_dtype: torch.dtype = torch.float32,
-                 precision: str | None = None):
+                 precision: str | None = None, remat: bool = False,
+                 remat_policy: str = "full"):
         super().__init__()
+        if remat and remat_policy != "full":
+            raise NotImplementedError(
+                f"remat_policy={remat_policy!r} is not ported (only 'full'; "
+                "see ROADMAP.md)")
+        self.remat = bool(remat)
         n, bpo = num_octs, bins_per_oct
         self.num_octs, self.bins_per_oct = n, bpo
         self.Ns, self.num_dils = tuple(Ns), tuple(num_dils)
@@ -129,11 +142,19 @@ class CQTDiffPlusNet(nn.Module):
             elif isinstance(m, (RFF_MLP_Block, AddFreqEncodingRFF)):
                 m.reset_buffers(gen)
 
+    def _block(self, name: str, x, sigma_emb):
+        """Run the ResnetBlock ``name``, rematerialized under ``remat``."""
+        blk = getattr(self, name)
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(blk, x, sigma_emb, use_reentrant=False)
+        return blk(x, sigma_emb)
+
     def forward(self, coeffs, sigma):
         n, bpo = self.num_octs, self.bins_per_oct
         assert len(coeffs) == n
         cdt = self.compute_dtype
         sigma_emb = self.embedding(sigma).to(cdt)
+        blk = self._block
 
         def as_real(c):
             return torch.stack([c.real, c.imag], dim=-1).to(cdt)
@@ -144,7 +165,7 @@ class CQTDiffPlusNet(nn.Module):
             C = as_real(coeffs[n - 1 - i])  # highest octave first
             C2 = (getattr(self, f"freq_encodings_{i}")(C) if self.use_fencoding
                   else C)
-            C2 = getattr(self, f"downs_{i}_0")(C2, sigma_emb)
+            C2 = blk(f"downs_{i}_0", C2, sigma_emb)
             if i == 0:
                 X = C2
                 pyr = resample_time(C, up=False)
@@ -155,7 +176,7 @@ class CQTDiffPlusNet(nn.Module):
             else:
                 pyr = torch.cat([C, pyr], dim=1)
                 X = torch.cat([C2, X], dim=1)
-            X = getattr(self, f"downs_{i}_2")(X, sigma_emb)
+            X = blk(f"downs_{i}_2", X, sigma_emb)
             hs.append(X)
             if i < n - 1:
                 X = resample_time(X, up=False)
@@ -164,15 +185,15 @@ class CQTDiffPlusNet(nn.Module):
 
         Xout = None
         for b in range(self.num_bottleneck_layers):
-            X = getattr(self, f"middle_{b}_1")(X, sigma_emb)
-            Xout = getattr(self, f"middle_{b}_0")(X, sigma_emb)
+            X = blk(f"middle_{b}_1", X, sigma_emb)
+            Xout = blk(f"middle_{b}_0", X, sigma_emb)
 
         outs = [None] * n
         for pidx in range(n):
             j = n - 1 - pidx
             X = torch.cat([X, hs.pop()], dim=-1)
-            X = getattr(self, f"ups_{pidx}_1")(X, sigma_emb)
-            out_head = getattr(self, f"ups_{pidx}_0")(X, sigma_emb)
+            X = blk(f"ups_{pidx}_1", X, sigma_emb)
+            out_head = blk(f"ups_{pidx}_0", X, sigma_emb)
             Xout = (Xout + out_head) * INV_SQRT2
             X = X[:, bpo:]
             Out, Xout = Xout[:, :bpo], Xout[:, bpo:]
@@ -198,7 +219,8 @@ class CQTDiffPlus(nn.Module):
                  use_fencoding=False, attention_layers=(0,) * 8,
                  attention_dict=None, num_bottleneck_layers=1,
                  compute_dtype=torch.float32, cqt_mode="native",
-                 precision=None, net: CQTDiffPlusNet | None = None):
+                 precision=None, remat=False, remat_policy="full",
+                 net: CQTDiffPlusNet | None = None):
         super().__init__()
         self.cqt: CQT = get_cqt(num_octs, bins_per_oct, float(fs),
                                 int(audio_len), window=window,
@@ -211,7 +233,8 @@ class CQTDiffPlus(nn.Module):
             attention_layers=tuple(attention_layers),
             attention_dict=attention_dict,
             num_bottleneck_layers=num_bottleneck_layers,
-            compute_dtype=compute_dtype, precision=precision)
+            compute_dtype=compute_dtype, precision=precision, remat=remat,
+            remat_policy=remat_policy)
 
     @classmethod
     def from_config(cls, args, compute_dtype=None,
@@ -234,7 +257,8 @@ class CQTDiffPlus(nn.Module):
             num_bottleneck_layers=int(net.get("num_bottleneck_layers", 1)),
             compute_dtype=compute_dtype,
             cqt_mode=net.cqt.get("mode", "native"),
-            precision=precision)
+            precision=precision, remat=bool(args.exp.get("remat", False)),
+            remat_policy=str(args.exp.get("remat_policy", "full")))
 
     def with_audio_len(self, audio_len: int) -> "CQTDiffPlus":
         """The same network (shared weights) behind a CQT frame built for

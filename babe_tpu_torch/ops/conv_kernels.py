@@ -6,7 +6,8 @@ Counterpart of ``babe_tpu/ops/conv_kernels.py``.  Layout is channels-last
   * ``conv5x3_dilated`` (K1): 'SAME' (5,3) conv with dilation (d,1).  On a
     CUDA tensor it launches ``csrc/conv5x3.cu``; on a CPU tensor it runs the
     plain ``conv_ref``.  Its backward is K1 again on the cotangent with the
-    kernel flipped and its in/out channels swapped.
+    kernel flipped and its in/out channels swapped (dx), and ``conv_dw``
+    (``csrc/conv_dw.cu``; plain version ``conv_dw_ref``) for the weight.
   * ``fused_stage`` (K2): one ResnetBlock dilation stage
     h = gelu(x*a); y = (x + conv5x3_d(h, w)*s)/sqrt2; moments [sum y,
     sum y^2] per (B, C).  CUDA tensors launch ``csrc/fused_stage.cu``; CPU
@@ -15,14 +16,18 @@ Counterpart of ``babe_tpu/ops/conv_kernels.py``.  Layout is channels-last
     into y's and a, s carry gradient back to x through earlier moments):
     on CUDA one launch of the same tile in its backward mode (the conv
     transpose with the vjp's elementwise chain fused around it), on the
-    CPU ``dil_stage_bwd_ref``.
+    CPU ``dil_stage_bwd_ref``.  The weight's gradient is ``fused_stage_dw``
+    (``csrc/conv_dw.cu``; plain version ``dil_stage_dw_ref``), which forms
+    gelu(x*a) and the conv output's cotangent in its own prologue.
   * ``fused_stage_int8`` (K3): the same stage with the conv in int8:
     q = int8(gelu6(x*a) * 127/bound), acc = conv5x3_d(q, qw) in int32,
     y = x/sqrt2 + acc*post in fp32, moments [sum y, sum y^2, max |y|] of
     the fp32 y.  CUDA tensors launch ``csrc/fused_stage_int8.cu``; CPU
     tensors run ``dil_stage_int8_ref``.  The backward is straight-through:
     the vjp of the exact stage (K2 recomputed, then K2's backward) at the
-    int8 forward's inputs; the bound gets no gradient.
+    int8 forward's inputs; the bound gets no gradient.  Its weight gradient
+    is not ported (int8 training waits for the unfused int8 convs), so a
+    weight that requires grad raises.
 
 There is no fallback: a CUDA tensor launches the kernel or raises.
 """
@@ -41,20 +46,62 @@ SQRT2 = math.sqrt(2.0)
 # --------------------------------------------------------------- plain convs
 
 
-def conv_ref(x: torch.Tensor, w: torch.Tensor, d: int = 1) -> torch.Tensor:
-    """Plain 'SAME' (5,3) conv with dilation (d,1): the 15 taps as shifted
-    matmuls, fp32 accumulation, output in x.dtype (K1's plain version)."""
+def conv_taps(x: torch.Tensor, w: torch.Tensor,
+              dilation=(1, 1)) -> torch.Tensor:
+    """Plain 'SAME' conv with odd kernel (kf, kt) and dilation (df, dt): the
+    taps as shifted matmuls, fp32 accumulation, output in x.dtype (K4's
+    plain version, ``pallas_conv.conv_ref``)."""
     B, F, T, C = x.shape
-    kf_n, kt_n, Ci, N = w.shape
-    assert (kf_n, kt_n) == (5, 3) and Ci == C, (tuple(w.shape), C)
-    xp = torch.nn.functional.pad(x.float(), (0, 0, 1, 1, 2 * d, 2 * d))
+    kf, kt, Ci, N = w.shape
+    assert kf % 2 == 1 and kt % 2 == 1 and Ci == C, (tuple(w.shape), C)
+    df, dt = (int(v) for v in dilation)
+    pf, pt = (kf - 1) // 2 * df, (kt - 1) // 2 * dt
+    xp = torch.nn.functional.pad(x.float(), (0, 0, pt, pt, pf, pf))
     wf = w.to(x.dtype).float()
     acc = x.new_zeros((B, F, T, N), dtype=torch.float32)
-    for kf in range(5):
-        for kt in range(3):
+    for i in range(kf):
+        for j in range(kt):
             acc = acc + torch.matmul(
-                xp[:, kf * d:kf * d + F, kt:kt + T, :], wf[kf, kt])
+                xp[:, i * df:i * df + F, j * dt:j * dt + T, :], wf[i, j])
     return acc.to(x.dtype)
+
+
+def conv_ref(x: torch.Tensor, w: torch.Tensor, d: int = 1) -> torch.Tensor:
+    """Plain 'SAME' (5,3) conv with dilation (d,1) (K1's plain version)."""
+    assert tuple(w.shape[:3]) == (5, 3, x.shape[3]), (tuple(w.shape),
+                                                       x.shape[3])
+    return conv_taps(x, w, (d, 1))
+
+
+def conv_dw_ref(x: torch.Tensor, g: torch.Tensor, kshape,
+                dilation=(1, 1)) -> torch.Tensor:
+    """Plain weight gradient of a 'SAME' conv with odd kernel ``kshape`` and
+    dilation (df, dt) (``conv_dw``'s plain version): per tap (i, j) the fp32
+    sum over every position of the shifted input times the output
+    cotangent, dW[i,j,c,n] = sum_{b,f,t} x[b, f+(i-PF)df, t+(j-PT)dt, c] *
+    g[b,f,t,n].  Returns (KF, KT, C, N) fp32."""
+    kf, kt = (int(v) for v in kshape)
+    df, dt = (int(v) for v in dilation)
+    B, F, T, C = x.shape
+    N = g.shape[-1]
+    pf, pt = (kf - 1) // 2 * df, (kt - 1) // 2 * dt
+    xp = torch.nn.functional.pad(x.float(), (0, 0, pt, pt, pf, pf))
+    g2 = g.float().reshape(-1, N)
+    dw = x.new_empty((kf, kt, C, N), dtype=torch.float32)
+    for i in range(kf):
+        for j in range(kt):
+            xs = xp[:, i * df:i * df + F, j * dt:j * dt + T, :]
+            dw[i, j] = xs.reshape(-1, C).t() @ g2
+    return dw
+
+
+def _conv_dw_any(x, g, kshape, dilation) -> torch.Tensor:
+    """The weight gradient in fp32: ``conv_dw`` on CUDA, else the plain
+    version."""
+    if x.is_cuda:
+        return _k.launch_conv_dw(x.contiguous(), g.to(x.dtype).contiguous(),
+                                 kshape, dilation)
+    return conv_dw_ref(x, g, kshape, dilation)
 
 
 def conv1x1(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -135,26 +182,28 @@ def _conv_any(x: torch.Tensor, w: torch.Tensor, d: int) -> torch.Tensor:
 class _Conv5x3(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, d):
-        ctx.save_for_backward(w)
+        ctx.save_for_backward(x if ctx.needs_input_grad[1] else None, w)
         ctx.d = d
         return _conv_any(x, w, d)
 
     @staticmethod
     def backward(ctx, g):
-        (w,) = ctx.saved_tensors
-        return _conv_any(g.to(w.dtype), _flip_io(w), ctx.d), None, None
+        x, w = ctx.saved_tensors
+        g = g.to(w.dtype)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _conv_any(g, _flip_io(w), ctx.d)
+        if ctx.needs_input_grad[1]:
+            dw = _conv_dw_any(x, g, (5, 3), (ctx.d, 1)).to(w.dtype)
+        return dx, dw, None
 
 
 def conv5x3_dilated(x: torch.Tensor, w: torch.Tensor, d: int) -> torch.Tensor:
     """'SAME' NHWC conv, kernel (5,3), dilation (d,1); fp32 accumulation,
-    output in x.dtype.  Input gradient only: the weight gradient is not
-    implemented yet, so a weight that requires grad raises."""
+    output in x.dtype.  The weight gradient comes back in x's dtype (the
+    cast to it carries it to the parameter's)."""
     B, F, T, C = x.shape
     assert tuple(w.shape[:3]) == (5, 3, C), (tuple(w.shape), C)
-    if w.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "conv5x3_dilated: the weight gradient is not implemented "
-            "(freeze the parameters with requires_grad_(False))")
     return _Conv5x3.apply(x, w.to(x.dtype), int(d))
 
 
@@ -188,16 +237,22 @@ def dil_stage_ref(x, a, s, w, d: int):
     return y, mom
 
 
+def _stage_gpre(x, y, g_y, g_mom):
+    """The cotangent of a stage's pre-scale sum x + c*s, rounded to x's
+    dtype step by step: the moments' cotangent folded into y's
+    (d sum y / dy = 1, d sum y^2 / dy = 2y), then divided by sqrt2."""
+    g = g_y + (g_mom[0][:, None, None, :]
+               + 2.0 * y.float() * g_mom[1][:, None, None, :]).to(x.dtype)
+    return g / _sqrt2(x)
+
+
 def dil_stage_bwd_ref(x, a, s, w, y, c, g_y, g_mom, d: int):
     """Plain version of K2's backward (the vjp of the JAX ``_dil_stage_ref``
     with respect to x, a and s).  y and c are the stage's output and conv
     output; g_y, g_mom the cotangents of y and of the moments.  Returns
     (dx in x.dtype, da, ds fp32)."""
     dt = x.dtype
-    # moments -> output cotangent: d(sum y)/dy = 1, d(sum y^2)/dy = 2y
-    g = g_y + (g_mom[0][:, None, None, :]
-               + 2.0 * y.float() * g_mom[1][:, None, None, :]).to(dt)
-    g_pre = g / _sqrt2(x)
+    g_pre = _stage_gpre(x, y, g_y, g_mom)
     ds = (g_pre.float() * c.float()).sum((1, 2))
     dh = conv_ref(g_pre * _bcast(s, dt), _flip_io(w.to(dt)), d)
     a_b = _bcast(a, dt)
@@ -205,6 +260,18 @@ def dil_stage_bwd_ref(x, a, s, w, y, c, g_y, g_mom, d: int):
     dx = g_pre + du * a_b
     da = (du.float() * x.float()).sum((1, 2))
     return dx, da, ds
+
+
+def dil_stage_dw_ref(x, a, s, y, g_y, g_mom, d: int):
+    """Plain version of ``fused_stage_dw``: the weight gradient of one K2
+    stage (the vjp of the JAX ``_dil_stage_ref`` with respect to w), the
+    per-tap fp32 sums of h = gelu(x*a) against the conv output's cotangent
+    g_pre*s, each formed in x's dtype in the reference's order.  Returns
+    (5, 3, C, C) fp32."""
+    dt = x.dtype
+    h = _gelu_impl(x * _bcast(a, dt))
+    gc = _stage_gpre(x, y, g_y, g_mom) * _bcast(s, dt)
+    return conv_dw_ref(h, gc, (5, 3), (d, 1))
 
 
 class _FusedStage(torch.autograd.Function):
@@ -233,18 +300,25 @@ class _FusedStage(torch.autograd.Function):
         else:
             dx, da, ds = dil_stage_bwd_ref(x, a, s, w, y, c, g_y, g_mom,
                                            ctx.d)
-        return dx, da, ds, None, None
+        dw = None
+        if ctx.needs_input_grad[3]:
+            if x.is_cuda:
+                dw = _k.launch_fused_stage_dw(
+                    x.contiguous(), a.contiguous(), s.contiguous(), y,
+                    g_y.to(x.dtype).contiguous(),
+                    g_mom.float().contiguous(), ctx.d)
+            else:
+                dw = dil_stage_dw_ref(x, a, s, y, g_y, g_mom, ctx.d)
+            dw = dw.to(w.dtype)
+        return dx, da, ds, dw, None
 
 
 def fused_stage(x, a, s, w, d: int):
-    """One fused ResnetBlock dilation stage: (y, mom).  See module doc."""
+    """One fused ResnetBlock dilation stage: (y, mom).  See module doc.
+    The weight gradient comes back in x's dtype."""
     B, F, T, C = x.shape
     assert tuple(w.shape) == (5, 3, C, C), (tuple(w.shape), C)
     assert tuple(a.shape) == (B, C) and tuple(s.shape) == (B, C)
-    if w.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "fused_stage: the weight gradient is not implemented "
-            "(freeze the parameters with requires_grad_(False))")
     return _FusedStage.apply(x, a, s, w, int(d))
 
 

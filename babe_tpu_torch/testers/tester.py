@@ -24,16 +24,23 @@ from babe_tpu_torch.utils.weights import _flatten, load_flax, to_flax
 ORBAX_EXT = ".orbax"
 
 
-class _Opaque:
-    """Stand-in for any class a checkpoint pickle names outside numpy and
-    the standard library (the optimizer state's classes): the tester reads
-    only the weights, so those entries are never used."""
+class _Record(tuple):
+    """Stand-in for a class a checkpoint pickle names outside numpy and the
+    standard library: optax's state classes, which are named tuples
+    (``ScaleByAdamState(count, mu, nu)``, ``ScaleByScheduleState(count)``,
+    ``EmptyState()``).  It keeps their fields in order, so the trainer
+    resumes Adam's state from a JAX checkpoint without importing optax."""
 
-    def __init__(self, *args, **kwargs):
-        pass
+    qualname = "?"
+
+    def __new__(cls, *fields, **kwargs):
+        return super().__new__(cls, fields)
 
     def __setstate__(self, state):
         pass
+
+    def __repr__(self):
+        return f"{self.qualname}{tuple.__repr__(self)}"
 
 
 class _WeightsUnpickler(pickle.Unpickler):
@@ -42,7 +49,7 @@ class _WeightsUnpickler(pickle.Unpickler):
     def find_class(self, module, name):
         if module.split(".")[0] in self._ALLOWED:
             return super().find_class(module, name)
-        return _Opaque
+        return type(name, (_Record,), {"qualname": f"{module}.{name}"})
 
 
 def read_checkpoint(path: str) -> dict:

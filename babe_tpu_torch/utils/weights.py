@@ -1,5 +1,9 @@
 """Weight bridge between the JAX package's variable tree and the port.
 
+The optimizer state of a training checkpoint crosses the same way
+(``adam_state_to_flax`` / ``adam_state_from_flax``): Adam's first and second
+moments are trees of the params' layout, inside optax's chain state.
+
 The JAX ``CQTDiffPlus.init`` returns ``{'params': tree, 'buffers': tree}``
 of nested dicts (``params['downs_0_2']['H_0']['conv']['kernel']``, HWIO conv
 kernels, (in, out) linear kernels; ``buffers['embedding']['RFF_freq']`` and
@@ -70,3 +74,32 @@ def load_flax(net: torch.nn.Module, params, buffers=None) -> None:
                 bad + [f"  missing {k}" for k in missing]
                 + [f"  unexpected {k}" for k in extra]))
     net.load_state_dict(sd)
+
+
+def to_tree(tensors: dict[str, torch.Tensor]) -> dict:
+    """Flat ``{dotted name: tensor}`` (params-like) -> a JAX-layout tree of
+    fp32 numpy arrays."""
+    return _nest({k: v.detach().float().cpu().numpy()
+                  for k, v in tensors.items()})
+
+
+def adam_state_to_flax(count: int, mu, nu, sched_count: int,
+                       clip: bool) -> tuple:
+    """Adam's state in the layout of the JAX trainer's optax chain
+    (``clip_by_global_norm`` then ``adam`` with a schedule), as plain tuples
+    that any reader unpickles: ``((), ((count, mu, nu), (sched_count,)))``
+    with the clip's empty state first, ``(((count, mu, nu),
+    (sched_count,)),)`` without it.  The leaves flatten in the order of
+    optax's own state, so the JAX trainer resumes from it."""
+    chain = ((np.asarray(count, np.int32), to_tree(mu), to_tree(nu)),
+             (np.asarray(sched_count, np.int32),))
+    return ((), chain) if clip else (chain,)
+
+
+def adam_state_from_flax(opt_state):
+    """(count, mu, nu, sched_count) from either package's checkpoint (the
+    chain's last entry holds Adam's state and the schedule's count; optax's
+    named tuples arrive as the tester's field-keeping stand-ins); mu and nu
+    as flat ``{dotted name: fp32 tensor}``."""
+    (count, mu, nu), sched = opt_state[-1]
+    return int(count), from_flax(mu), from_flax(nu), int(sched[0])

@@ -9,18 +9,26 @@ Phases (any failure exits non-zero; no phase catches and carries on):
   1. identify   the card (nvidia-smi name and power limit), torch and CUDA
                 versions, and the kernel build (one nvcc per source, all
                 started together) with its time and ptxas resource lines.
-  2. kernels    every hand kernel of the serving path against its plain
-                PyTorch version on the card, in bf16 and fp32, at every shape
-                the flagship path gives it: K1 (conv5x3) at each pyramid conv
-                and its transpose, K2 (fused dilation stage, moments
-                included) and its backward kernel at each (C, d, F, T) stage
-                of the network on the full 184184-sample segment, K3 (the
-                int8 stage) at each stage of at least 96 channels and one of
-                100 channels, with the share of int8 conv inputs that differ
-                from the plain version's.  Each shape also gets its time,
-                its bound, the plain version's time and a cuDNN conv of the
-                same conv as a yardstick (bf16 for K3: no PyTorch call
-                computes an int8 conv).
+  2. kernels    every hand kernel against its plain PyTorch version on
+                the card, in bf16 and fp32, at every shape the flagship
+                paths give it: K1 (conv5x3) at each pyramid conv and its
+                transpose, K2 (fused dilation stage, moments included) and
+                its backward kernel at each (C, d, F, T) stage of the
+                network on the full 184184-sample segment, K3 (the int8
+                stage) at each stage of at least 96 channels and one of 100
+                channels, with the share of int8 conv inputs that differ
+                from the plain version's; K4 (the general dilated conv) at
+                tests/test_pallas_conv.py's shapes with kernels (3,3),
+                (5,3), (7,3), (3,5) and dilations up to (4,1) and (2,2), and
+                at the five level shapes of pallas_conv.py's table (batch
+                4), then through its entry point (forward and dx) at those
+                shapes with its launches counted; the weight gradients
+                conv_dw (the 7 pyramid convs and their transposed shapes)
+                and fused_stage_dw (every distinct stage shape) at the
+                training batch (4 x 184184 samples).  Each shape also gets
+                its time, its bound, the plain version's time and a cuDNN
+                yardstick (a conv, or its weight gradient; bf16 for K3: no
+                PyTorch call computes an int8 conv).
   3. probe      the int8 probe's kernels (P1 GEMM, P2 stage core) against
                 their plain versions (int8 bit-exact), then the probe entry
                 point (``babe_tpu_torch.tools.probe_int8``) at its four shapes
@@ -30,14 +38,26 @@ Phases (any failure exits non-zero; no phase catches and carries on):
                 denoiser output and guidance gradient at the tiny config in
                 fp32 and at the flagship widths on a short segment in fp32,
                 bf16 and int8, and int8 against the CPU's int8 with the
-                CPU's run forced onto the card's at every int8 stage.
+                CPU's run forced onto the card's at every int8 stage; then
+                the gradients of every parameter for one training step
+                (fixed sigma and noise, remat, opened gates) in fp32 and
+                bf16.
   5. requests   the flagship model from a seed, written as a JAX-format
                 .ckpt, loaded twice with ``BABE.load`` on the card (bf16 and
                 ``precision="int8"``), each answering two blind ``enhance``
                 requests and one informed one on 184184 samples of seeded
                 low-passed audio.  The launch counters are zeroed just before
                 each model's requests and read just after.
-  6. quality    the same-seed 35-step unconditional trajectory of the
+  6. train      ``python -m babe_tpu_torch.train``'s main at the flagship
+                config (seeded 44.1 kHz wavs, exp=maestro22k_8s: batch 4,
+                184184 samples, resample factor 2, remat, bf16) for 5
+                steps, 2 untimed: s/step, audio-seconds trained per second,
+                peak memory, the device's busy share over one profiled
+                step, each step's launches held to the network's counts
+                (remat recompute included), params and EMA that moved,
+                then the written .ckpt loaded with BABE.load on the card
+                answering one blind request.
+  7. quality    the same-seed 35-step unconditional trajectory of the
                 flagship model (110250 samples, batch 4, gates opened with
                 N(0, 0.02^2)) in bf16 and in int8: the waveform's relative
                 divergence and the LSD between the two, reported, not gated.
@@ -79,6 +99,11 @@ REPLACES = {
     "fused_stage_int8": "babe_tpu/ops/conv_kernels.py:1162",
     "probe_gemm": "tools/probe_pallas_int8.py:50",
     "probe_stage": "tools/probe_pallas_int8.py:97",
+    "dilated_conv": "babe_tpu/ops/pallas_conv.py:44",
+    # the weight halves of the custom vjps (XLA on the TPU): K1's
+    # linear_transpose of conv_xla in w, and K2's vjp of _dil_stage_ref
+    "conv_dw": "babe_tpu/ops/conv_kernels.py:600",
+    "fused_stage_dw": "babe_tpu/ops/conv_kernels.py:1090",
 }
 SOURCES = {
     "conv5x3": "babe_tpu_torch/csrc/conv5x3.cu",
@@ -88,6 +113,9 @@ SOURCES = {
     "fused_stage_int8": "babe_tpu_torch/csrc/fused_stage_int8.cu",
     "probe_gemm": "babe_tpu_torch/csrc/probe_int8.cu",
     "probe_stage": "babe_tpu_torch/csrc/probe_int8.cu",
+    "dilated_conv": "babe_tpu_torch/csrc/dilated_conv.cu",
+    "conv_dw": "babe_tpu_torch/csrc/conv_dw.cu",
+    "fused_stage_dw": "babe_tpu_torch/csrc/conv_dw.cu",
 }
 # what each kernel's ms, plain_ms, bound_ms and library_ms sum over
 PER = {
@@ -100,7 +128,33 @@ PER = {
                   "(a @ b, torch._int_mm)",
     "probe_stage": "one product at each of 2 shapes x (bf16, int8), timed "
                    "over launches of 8 repetitions",
+    "dilated_conv": "one forward at each of the five level shapes of "
+                    "pallas_conv.py's table (batch 4, kernel (5,3), N = C), "
+                    "bf16; launches: its entry point's forward and dx at "
+                    "those shapes; library_ms is cuDNN F.conv2d",
+    "conv_dw": "one training step (flagship, batch 4, 184184 samples), "
+               "bf16: the 7 pyramid convs' weight gradients; library_ms is "
+               "cuDNN's weight gradient (aten.convolution_backward)",
+    "fused_stage_dw": "one training step (flagship, batch 4, 184184 "
+                      "samples), bf16: the 75 stages' weight gradients; "
+                      "library_ms is cuDNN's weight gradient of the same "
+                      "conv (without the prologues)",
 }
+# where each kernel's launch count comes from
+LAUNCHES_FROM = {
+    "probe_gemm": "the probe run", "probe_stage": "the probe run",
+    "fused_stage_int8": "the int8 requests",
+    "dilated_conv": "the K4 entry-point run of the kernels phase",
+    "conv_dw": "the train phase (all its steps)",
+    "fused_stage_dw": "the train phase (all its steps)",
+}
+# the weight gradients are summed over up to 2.9M positions in another
+# order than the plain version's (fp32 partials added by atomics): both
+# dtypes give fp32 dW, held at these bars
+DW_TOL = {"max_rel": 1e-4, "l2_rel": 5e-5}
+# the kernels the train phase must launch, each an exact count per step
+TRAIN_PATH = ("conv5x3", "fused_stage", "fused_stage_bwd", "conv_dw",
+              "fused_stage_dw")
 # the kernels each request path must launch; the probe's run on its own path
 BF16_PATH = ("conv5x3", "fused_stage", "fused_stage_bwd", "filter_fit")
 INT8_PATH = BF16_PATH + ("fused_stage_int8",)
@@ -222,7 +276,6 @@ def phase_identify(kernels):
 
 def phase_kernels(results: dict):
     import torch
-    import torch.nn.functional as Fnn
 
     from babe_tpu_torch import kernels
     from babe_tpu_torch.ops import conv_kernels as ck
@@ -248,11 +301,7 @@ def phase_kernels(results: dict):
     k3_shapes[(F0, T0, 100, 2)] = 0
 
     def library_conv(x, w, d):
-        xc = x.permute(0, 3, 1, 2)  # NCHW view, channels-last strides
-        wc = w.permute(3, 2, 0, 1).contiguous(
-            memory_format=torch.channels_last)
-        return lambda: Fnn.conv2d(xc, wc, padding=(2 * d, 1),
-                                  dilation=(d, 1))
+        return _library_conv(x, w, (d, 1))
 
     def account(name, count, dtype, t_k, t_p, t_l, flops, nbytes, e,
                 op_dtype=None):
@@ -363,10 +412,15 @@ def phase_kernels(results: dict):
             ok &= _kernel_int8_stage(F, T, C, d, count, dtype, g8, account,
                                      library_conv)
     ok &= _kernel_filter_fit(agg["filter_fit"])
+    ok &= _kernel_k4(account, results)
+    ok &= _kernel_dw(account, k1_shapes, k2_shapes)
     for name, a in agg.items():
         if name == "filter_fit":
             continue  # logged by _kernel_filter_fit
-        log(f"{name}: per guided evaluation (bf16, main-path shapes and "
+        per = ("one training step" if name in ("conv_dw", "fused_stage_dw")
+               else "one forward at each level shape" if name ==
+               "dilated_conv" else "guided evaluation")
+        log(f"{name}: per {per} (bf16, main-path shapes and "
             f"counts) ms={a['ms']:.3f} bound_ms={a['bound_ms']:.3f} "
             f"plain_ms={a['plain_ms']:.3f} cudnn_ms={a['library_ms']:.3f}"
             f"{' (bf16 conv)' if name == 'fused_stage_int8' else ''} "
@@ -375,6 +429,192 @@ def phase_kernels(results: dict):
     if not ok:
         raise RuntimeError("a kernel disagrees with its plain version "
                            f"beyond the stated tolerance {TOL}")
+
+
+def _library_conv(x, w, dil):
+    """cuDNN's conv of x (B,F,T,C) with the HWIO kernel w, 'SAME'."""
+    import torch
+    import torch.nn.functional as Fnn
+
+    kf, kt = w.shape[:2]
+    xc = x.permute(0, 3, 1, 2)  # NCHW view, channels-last strides
+    wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    pad = ((kf - 1) // 2 * dil[0], (kt - 1) // 2 * dil[1])
+    return lambda: Fnn.conv2d(xc, wc, padding=pad, dilation=dil)
+
+
+def _library_wgrad(x, g, kshape, dil):
+    """cuDNN's weight gradient (only) of the 'SAME' conv of x (B,F,T,C)
+    with output cotangent g (B,F,T,N)."""
+    import torch
+
+    kf, kt = kshape
+    xc, gc = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+    w = torch.empty((g.shape[3], x.shape[3], kf, kt), dtype=x.dtype,
+                    device=x.device).contiguous(
+                        memory_format=torch.channels_last)
+    pad = [(kf - 1) // 2 * dil[0], (kt - 1) // 2 * dil[1]]
+    return lambda: torch.ops.aten.convolution_backward(
+        gc, xc, w, None, [1, 1], pad, list(dil), False, [0, 0], 1,
+        [False, True, False])
+
+
+# K4's shapes: tests/test_pallas_conv.py's (B, F, T, C, N) at four kernels
+# and four dilations, then the five level shapes of pallas_conv.py's table
+# (F, T, C, df) at batch 4 with the (5,3) kernel
+K4_SMALL = [(2, 16, 64, 8, 8, kf, kt, dil)
+            for kf, kt in ((3, 3), (5, 3), (7, 3), (3, 5))
+            for dil in ((1, 1), (2, 1), (4, 1), (2, 2))]
+K4_LEVELS = [(4, F, T, C, C, 5, 3, (df, 1)) for F, T, C, df in (
+    (64, 1280, 64, 2), (128, 640, 96, 4), (256, 160, 128, 16),
+    (384, 40, 256, 32), (448, 20, 256, 64))]
+
+
+def _kernel_k4(account, results) -> bool:
+    """K4 against its plain version (``conv_ref``) at K4_SMALL and
+    K4_LEVELS in bf16 and fp32, with times at the level shapes; then its
+    entry point ``dilated_conv_nhwc`` (forward and dx, the weight frozen)
+    at the level shapes, with the counters zeroed just before and read just
+    after: K4's launches."""
+    import torch
+
+    from babe_tpu_torch import kernels
+    from babe_tpu_torch.ops import pallas_conv as pc
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    ok = True
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[-1]
+        isz = torch.tensor([], dtype=dtype).element_size()
+        for B, F, T, C, N, kf, kt, dil in K4_SMALL + K4_LEVELS:
+            x = torch.randn((B, F, T, C), generator=g, device=dev).to(dtype)
+            w = (torch.randn((kf, kt, C, N), generator=g, device=dev)
+                 / math.sqrt(kf * kt * C)).to(dtype)
+            y = kernels.launch_dilated_conv(x, w, dil)
+            ref = pc.conv_ref(x, w, dil)
+            torch.cuda.synchronize()
+            e = errs(y, ref)
+            good = within(e, dn)
+            ok &= good
+            line = (f"K4 {dn:8s} B={B} F={F:3d} T={T:4d} C={C:3d} N={N:3d} "
+                    f"k=({kf},{kt}) dil={dil}: max_abs={e[0]:.3e} "
+                    f"max_rel={e[1]:.2e} l2_rel={e[2]:.2e} "
+                    f"{'ok' if good else 'FAIL'}")
+            if B == 4:
+                t_k = cuda_time(lambda: kernels.launch_dilated_conv(
+                    x, w, dil))
+                t_p = cuda_time(lambda: pc.conv_ref(x, w, dil), reps=2)
+                t_l = cuda_time(_library_conv(x, w, dil))
+                flops = 2.0 * B * F * T * kf * kt * C * N
+                nbytes = (B * F * T * (C + N) + kf * kt * C * N) * isz
+                b, by = bound_ms(flops, nbytes, dtype)
+                line += (f" | ms={t_k:.4f} bound={b:.4f}({by}) "
+                         f"plain={t_p:.4f} cudnn={t_l:.4f}")
+                account("dilated_conv", 1, dtype, t_k, t_p, t_l, flops,
+                        nbytes, e)
+            log(line)
+    kernels.reset_launch_counts()
+    for B, F, T, C, N, kf, kt, dil in K4_LEVELS:
+        x = torch.randn((B, F, T, C), generator=g, device=dev,
+                        dtype=torch.bfloat16, requires_grad=True)
+        w = torch.randn((kf, kt, C, N), generator=g, device=dev) / math.sqrt(
+            kf * kt * C)
+        pc.dilated_conv_nhwc(x, w, dil).backward(torch.ones(
+            (B, F, T, N), device=dev, dtype=torch.bfloat16))
+        ok &= bool(torch.isfinite(x.grad).all())
+    torch.cuda.synchronize()
+    n = kernels.LAUNCHES["dilated_conv"]
+    log(f"K4 entry point (dilated_conv_nhwc, forward + dx at the "
+        f"{len(K4_LEVELS)} level shapes): {n} launches")
+    if n != 2 * len(K4_LEVELS):
+        raise RuntimeError(f"K4's entry point launched it {n} times, not "
+                           f"{2 * len(K4_LEVELS)}")
+    results.setdefault("launches", {})["dilated_conv"] = n
+    return ok
+
+
+def _kernel_dw(account, k1_shapes, k2_shapes, B: int = 4) -> bool:
+    """The weight-gradient kernels against their plain versions at the
+    training batch (B = 4, 184184 samples), bf16 and fp32: ``conv_dw`` at
+    the 7 pyramid convs (1 per step) and at their 7 transposed shapes
+    (C = Ns, N = 2; a check, count 0), ``fused_stage_dw`` at every distinct
+    stage shape (its stages per step), each with its time, bound, plain
+    time and cuDNN's weight gradient."""
+    import torch
+
+    from babe_tpu_torch import kernels
+    from babe_tpu_torch.ops import conv_kernels as ck
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    ok = True
+
+    def judge(what, dw, ref, dn):
+        e = errs(dw, ref)
+        good = e[1] <= DW_TOL["max_rel"] and e[2] <= DW_TOL["l2_rel"]
+        return e, good, (f"{what} {dn:8s}: max_abs={e[0]:.3e} max_rel="
+                         f"{e[1]:.2e} l2_rel={e[2]:.2e} "
+                         f"{'ok' if good else 'FAIL'}")
+
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[-1]
+        isz = torch.tensor([], dtype=dtype).element_size()
+        for (F, T, C, N, d, role), count in sorted(k1_shapes.items()):
+            if role == "stage shape":
+                continue
+            count = 1 if role == "pyramid fwd" else 0
+            x = torch.randn((B, F, T, C), generator=g, device=dev).to(dtype)
+            gy = torch.randn((B, F, T, N), generator=g, device=dev).to(dtype)
+            dw = kernels.launch_conv_dw(x, gy, (5, 3), (d, 1))
+            ref = ck.conv_dw_ref(x, gy, (5, 3), (d, 1))
+            torch.cuda.synchronize()
+            e, good, line = judge(
+                f"conv_dw {role:11s} B={B} F={F:3d} T={T:4d} C={C:3d} "
+                f"N={N:3d} x{count}", dw, ref, dn)
+            ok &= good
+            t_k = cuda_time(lambda: kernels.launch_conv_dw(
+                x, gy, (5, 3), (d, 1)))
+            t_p = cuda_time(lambda: ck.conv_dw_ref(x, gy, (5, 3), (d, 1)),
+                            reps=2)
+            t_l = cuda_time(_library_wgrad(x, gy, (5, 3), (d, 1)))
+            flops = 2.0 * B * F * T * 15 * C * N
+            nbytes = B * F * T * (C + N) * isz + 15 * C * N * 4
+            b, by = bound_ms(flops, nbytes, dtype)
+            log(f"{line} | ms={t_k:.4f} bound={b:.4f}({by}) plain={t_p:.4f} "
+                f"cudnn={t_l:.4f}")
+            account("conv_dw", count, dtype, t_k, t_p, t_l, flops, nbytes, e)
+        for (F, T, C, d), count in sorted(k2_shapes.items()):
+            x = torch.randn((B, F, T, C), generator=g, device=dev).to(dtype)
+            w = (torch.randn((5, 3, C, C), generator=g, device=dev)
+                 / math.sqrt(15 * C)).to(dtype)
+            a = 0.5 + torch.rand((B, C), generator=g, device=dev)
+            s = torch.randn((B, C), generator=g, device=dev)  # opened gate
+            y, _ = ck.dil_stage_ref(x, a, s, w, d)
+            gy = torch.randn((B, F, T, C), generator=g, device=dev).to(dtype)
+            gm = torch.randn((2, B, C), generator=g, device=dev) / (F * T)
+            dw = kernels.launch_fused_stage_dw(x, a, s, y, gy, gm, d)
+            ref = ck.dil_stage_dw_ref(x, a, s, y, gy, gm, d)
+            torch.cuda.synchronize()
+            e, good, line = judge(
+                f"fused_stage_dw B={B} F={F:3d} T={T:4d} C={C:3d} d={d:2d} "
+                f"x{count}", dw, ref, dn)
+            ok &= good
+            t_k = cuda_time(lambda: kernels.launch_fused_stage_dw(
+                x, a, s, y, gy, gm, d))
+            t_p = cuda_time(lambda: ck.dil_stage_dw_ref(
+                x, a, s, y, gy, gm, d), reps=2)
+            h = ck._gelu_impl(x * a[:, None, None, :].to(dtype))
+            gc = ck._stage_gpre(x, y, gy, gm) * s[:, None, None, :].to(dtype)
+            t_l = cuda_time(_library_wgrad(h, gc, (5, 3), (d, 1)))
+            flops = 2.0 * B * F * T * 15 * C * C
+            nbytes = 3 * B * F * T * C * isz + 4 * 4 * B * C + 15 * C * C * 4
+            b, by = bound_ms(flops, nbytes, dtype)
+            log(f"{line} | ms={t_k:.4f} bound={b:.4f}({by}) plain={t_p:.4f} "
+                f"cudnn={t_l:.4f}")
+            account("fused_stage_dw", count, dtype, t_k, t_p, t_l, flops,
+                    nbytes, e)
+    return ok
 
 
 def _kernel_int8_stage(F, T, C, d, count, dtype, g, account,
@@ -722,7 +962,8 @@ def phase_check():
                            ("flagship widths, short segment",
                             ["exp.audio_len=16384"], 1e-3)):
         t0 = time.perf_counter()
-        args = default_config(ov)
+        # serving runs without remat (as BABE.load builds it)
+        args = default_config(ov + ["exp.remat=false"])
         m = CQTDiffPlus.from_config(args).init(seed=1, device="cpu")
         _random_flagship_like(m.net, 2)
         m.net.requires_grad_(False)
@@ -801,7 +1042,61 @@ def phase_check():
             if not good:
                 raise RuntimeError(f"check failed: {label} int8 forced "
                                    f"({dn} carrier)")
+        _check_train_grads(m, edm, L, tol)
         log(f"check {label}: {time.perf_counter() - t0:.1f} s")
+
+
+def _check_train_grads(m, edm, L: int, tol: float):
+    """The gradients of one training step (the EDM loss at fixed sigma and
+    noise, remat on, every weight opened), card against the CPU: the whole
+    gradient vector's relative L2 error and the worst parameter's.  fp32 to
+    ``tol``; bf16 to the CPU's fp32 no worse than 1.5x the CPU's bf16 (as
+    the serving check does)."""
+    import torch
+
+    rng = np.random.default_rng(21)
+    x = (0.1 * rng.standard_normal((1, L))).astype(np.float32)
+    sigma = np.full((1, 1), 0.2, np.float32)
+    noise = (sigma * rng.standard_normal((1, L))).astype(np.float32)
+    m.net.set_precision(None)
+    m.net.remat = True
+    m.net.requires_grad_(True)
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        m.net.compute_dtype = dt
+        for dev in ("cpu", "cuda"):
+            m.to(dev)
+            m.net.zero_grad(set_to_none=True)
+            e2, _ = edm.loss_fn(None, m.apply, torch.tensor(x, device=dev),
+                                sigma=torch.tensor(sigma, device=dev),
+                                noise=torch.tensor(noise, device=dev))
+            e2.mean().backward()
+            out[dev, dt] = {k: p.grad.detach().float().cpu()
+                            for k, p in m.net.named_parameters()}
+    m.net.remat = False
+    m.net.requires_grad_(False)
+    m.net.zero_grad(set_to_none=True)
+
+    def rel(a, b):
+        va = torch.cat([v.flatten() for v in a.values()])
+        vb = torch.cat([v.flatten() for v in b.values()])
+        worst = max((float((a[k] - b[k]).norm() / (b[k].norm() + 1e-30)), k)
+                    for k in b)
+        return float((va - vb).norm() / (vb.norm() + 1e-30)), worst
+
+    ref = out["cpu", torch.float32]
+    e, worst = rel(out["cuda", torch.float32], ref)
+    good = e <= tol
+    log(f"check train grads fp32: all {len(ref)} parameters card vs CPU "
+        f"l2_rel={e:.3e} (tol {tol:g}); worst parameter {worst[1]} "
+        f"l2_rel={worst[0]:.3e} {'ok' if good else 'FAIL'}")
+    e_card, _ = rel(out["cuda", torch.bfloat16], ref)
+    e_cpu, _ = rel(out["cpu", torch.bfloat16], ref)
+    ok_b = e_card <= 1.5 * e_cpu
+    log(f"check train grads bf16 vs fp32 CPU: card l2_rel={e_card:.3e}, CPU "
+        f"l2_rel={e_cpu:.3e} (card within 1.5x) {'ok' if ok_b else 'FAIL'}")
+    if not (good and ok_b):
+        raise RuntimeError("check failed: training gradients")
 
 
 def _lowpassed_audio(L: int, fs: int, seed: int) -> np.ndarray:
@@ -902,6 +1197,194 @@ def phase_requests(results: dict, T: int = 35, n_blind: int = 2):
         "fused_stage_int8"]
 
 
+def train_launches_per_step(net) -> dict:
+    """Each path kernel's launches in one training step of ``net``: K1 and
+    conv_dw once per (5,3) conv outside the ResnetBlocks (the pyramid
+    convs; their inputs need no gradient, so no dx), K2 once per fused
+    stage and once more when remat recomputes the block, K2's backward and
+    fused_stage_dw once per stage."""
+    from babe_tpu_torch.models.blocks import Conv2d, ResnetBlock
+
+    stages = sum(b.num_dils for b in net.modules()
+                 if isinstance(b, ResnetBlock) and b.fused)
+    pyr = sum(1 for m in net.children()
+              if isinstance(m, Conv2d) and m.kernel_size == (5, 3))
+    return {"conv5x3": pyr, "conv_dw": pyr,
+            "fused_stage": stages * (2 if net.remat else 1),
+            "fused_stage_bwd": stages, "fused_stage_dw": stages}
+
+
+def _seeded_wavs(folder: str, n: int, seconds: float, fs: int, seed: int):
+    """Seeded harmonic tones plus noise, written as 16-bit wavs."""
+    from babe_tpu_torch.data.wavio import write_wav
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * fs)) / fs
+    for i in range(n):
+        x = 0.01 * rng.standard_normal(t.size)
+        for f0 in rng.uniform(80, 600, 4):
+            for k in range(1, 12):
+                x += rng.uniform(0.02, 0.1) / k * np.sin(
+                    2 * np.pi * f0 * k * t + rng.uniform(0, 2 * np.pi))
+        write_wav(os.path.join(folder, f"seed{seed}_{i}.wav"),
+                  (0.5 * x / np.abs(x).max()).astype(np.float32), fs)
+
+
+def phase_train(results: dict, steps: int = 5, untimed: int = 2):
+    """``python -m babe_tpu_torch.train``'s ``main`` at the flagship config
+    (dset=musicnet on seeded 44.1 kHz wavs, exp=maestro22k_8s: batch 4,
+    184184 samples, resample factor 2, remat, bf16) for ``steps`` steps,
+    the first ``untimed`` untimed, then its checkpoint served by BABE.load.
+    Every step is timed between synchronisations and its kernel launches
+    counted; the counters are zeroed just before main and read just after.
+    Fails on a non-finite loss, params or EMA that did not move after the
+    untimed steps, a launch count other than the network's, a missing
+    checkpoint or a non-finite blind request."""
+    import shutil
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from babe_tpu_torch import kernels
+    from babe_tpu_torch import train as ttrain
+    from babe_tpu_torch.api import BABE
+    from babe_tpu_torch.training.trainer import Trainer
+
+    tmp = tempfile.mkdtemp(prefix="babe_train_")
+    try:
+        wavs = os.path.join(tmp, "wavs")
+        os.makedirs(wavs)
+        t0 = time.perf_counter()
+        _seeded_wavs(wavs, 4, 12.0, 44100, seed=30)
+        log(f"train: 4 seeded 12 s wavs at 44100 Hz written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        rec, snap = [], {}
+        orig = Trainer._step
+
+        def step_spy(self, x, sigma=None, noise=None):
+            torch.cuda.synchronize()
+            before = dict(kernels.LAUNCHES)
+            t1 = time.perf_counter()
+            m = orig(self, x, sigma, noise)
+            torch.cuda.synchronize()
+            rec.append({"s": time.perf_counter() - t1,
+                        "loss": float(m["loss"]),
+                        "nonfinite": bool(m["nonfinite"]),
+                        "launches": {k: kernels.LAUNCHES[k] - before[k]
+                                     for k in TRAIN_PATH}})
+            snap["x"] = x
+            if len(rec) == untimed:
+                snap["params"] = {k: p.detach().clone()
+                                  for k, p in self.params.items()}
+                snap["ema"] = {k: v.clone() for k, v in self.ema.items()}
+            return m
+
+        argv = ["dset=musicnet", f"dset.path={wavs}", "exp=maestro22k_8s",
+                "network=cqtdiff+", f"model_dir={os.path.join(tmp, 'exp')}",
+                "exp.resume=false", f"exp.total_its={steps}",
+                "logging.log_interval=1"]
+        log(f"train: python -m babe_tpu_torch.train {' '.join(argv)}")
+        Trainer._step = step_spy
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            tr = ttrain.main(argv)
+        finally:
+            Trainer._step = orig
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: kernels.LAUNCHES[k] for k in TRAIN_PATH}
+        peak = torch.cuda.max_memory_allocated()
+        exp = tr.args.exp
+        cfg = (int(exp.batch), int(exp.audio_len),
+               int(exp.resample_factor), bool(tr.net.remat),
+               tr.net.compute_dtype)
+        if cfg != (4, 184184, 2, True, torch.bfloat16):
+            raise RuntimeError(f"train: not the flagship config: {cfg}")
+        want = train_launches_per_step(tr.net)
+        for i, r in enumerate(rec):
+            log(f"train step {i + 1}{' (untimed)' if i < untimed else ''}: "
+                f"{r['s']:.3f} s, loss {r['loss']:.5f}, launches "
+                f"{r['launches']}")
+        timed = [r["s"] for r in rec[untimed:]]
+        s_step = float(np.median(timed))
+        audio_s = int(exp.batch) * int(exp.audio_len) / int(exp.sample_rate)
+        # the device's busy share over one more step of the same batch
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            tr._step(snap["x"])
+            torch.cuda.synchronize()
+            pwall = time.perf_counter() - t1
+        kern = [e for e in prof.key_averages()
+                if getattr(e, "device_type", None)
+                == torch.autograd.DeviceType.CUDA]
+        busy = sum(_dev_us(e) for e in kern) / 1e6
+        log(f"train: {len(rec)} steps in {wall:.1f} s of main (data, "
+            f"model build, steps, checkpoint); timed steps {timed} s, "
+            f"median {s_step:.3f} s/step, {audio_s / s_step:.3f} audio-s "
+            f"trained per s ({int(exp.batch)} x {int(exp.audio_len)} samples "
+            f"at {int(exp.sample_rate)} Hz); peak memory allocated "
+            f"{peak / 2**30:.2f} GiB; one profiled step: wall {pwall:.3f} s, "
+            f"device kernel time {busy:.3f} s, busy share "
+            f"{busy / pwall:.3f}")
+        log(f"train: the profiled step's {sum(e.count for e in kern)} "
+            f"kernel launches; top kernels by device time:")
+        for e in sorted(kern, key=_dev_us, reverse=True)[:12]:
+            log(f"  {_dev_us(e) / 1e3:10.3f} ms  x{e.count:6d}  {e.key[:90]}")
+        log(f"train: launches {counts}, per step expected {want}")
+        bad = [i for i, r in enumerate(rec) if r["launches"] != want]
+        if len(rec) != steps or bad or any(
+                counts[k] != steps * want[k] for k in TRAIN_PATH):
+            raise RuntimeError(f"train: launch counts differ from the "
+                               f"network's at steps {bad}")
+        if any(r["nonfinite"] or not math.isfinite(r["loss"]) for r in rec):
+            raise RuntimeError("train: a non-finite step")
+        moved = {what: max(float((getattr(tr, what)[k].detach()
+                                  - v).abs().max())
+                           for k, v in snap[what].items())
+                 for what in ("params", "ema")}
+        log(f"train: largest change after step {untimed}: {moved}")
+        if not all(v > 0 for v in moved.values()):
+            raise RuntimeError("train: params or EMA did not move")
+        ckpt = tr._latest_ckpt
+        if not (ckpt and os.path.exists(ckpt)):
+            raise RuntimeError("train: no checkpoint written")
+        log(f"train: checkpoint {os.path.basename(ckpt)} "
+            f"({os.path.getsize(ckpt) / 2**20:.0f} MiB)")
+        del tr, snap
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        m = BABE.load(ckpt)
+        L, fs = int(m.args.exp.audio_len), m.fs
+        x = _lowpassed_audio(L, fs, seed=31)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out, info = m.enhance(x, fs, seed=0)
+        torch.cuda.synchronize()
+        fin = (bool(np.isfinite(out).all()) and out.shape == (1, L)
+               and np.isfinite(info["fc"]).all())
+        log(f"train: the checkpoint loaded with BABE.load on "
+            f"{m.device} in {t2 - t1:.1f} s; one blind request "
+            f"{time.perf_counter() - t2:.2f} s, fc="
+            f"{np.round(info['fc'], 1).tolist()} finite={fin}")
+        if not fin:
+            raise RuntimeError("train: the trained checkpoint's blind "
+                               "request is not finite")
+        results["train"] = {"s_per_step": s_step, "timed_s": timed,
+                            "audio_s_per_s": audio_s / s_step,
+                            "peak_gib": peak / 2**30,
+                            "busy_share": busy / pwall}
+        results.setdefault("launches", {}).update(
+            {k: counts[k] for k in ("conv_dw", "fused_stage_dw")})
+        del m
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def phase_quality(results: dict, sigma_gate: float = 0.02):
     """The same-seed 35-step unconditional trajectory in bf16 and in int8:
     flagship model (seed 0) at 110250 samples, batch 4, every gate kernel
@@ -956,6 +1439,15 @@ def phase_quality(results: dict, sigma_gate: float = 0.02):
                           "sigma_gate": sigma_gate}
 
 
+def _dev_us(e) -> float:
+    """An event's own device time in microseconds (the attribute's name
+    differs between torch versions)."""
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(e, attr):
+            return float(getattr(e, attr))
+    return 0.0
+
+
 def phase_profile():
     """Where one guided evaluation of a blind request spends its time, in
     bf16 and in int8: the parts timed with synchronisation (network forward
@@ -971,12 +1463,6 @@ def phase_profile():
     from babe_tpu_torch.ops.filters import design_filter
     from babe_tpu_torch.ops.stft import apply_filter_istft, apply_stft
     from babe_tpu_torch.testers.tester import Tester
-
-    def dev_us(e):
-        for attr in ("self_device_time_total", "self_cuda_time_total"):
-            if hasattr(e, attr):
-                return float(getattr(e, attr))
-        return 0.0
 
     args = default_config(["tester=blind_bwe"])
     L, fs = int(args.exp.audio_len), int(args.exp.sample_rate)
@@ -1026,25 +1512,26 @@ def phase_profile():
         ka = prof.key_averages()
         kern = [e for e in ka if getattr(e, "device_type", None)
                 == torch.autograd.DeviceType.CUDA]
-        busy = sum(dev_us(e) for e in kern) / 1e6
+        busy = sum(_dev_us(e) for e in kern) / 1e6
         log(f"profile {prec}: one stage under the profiler: wall {wall:.4f} "
             f"s, device kernel time {busy:.4f} s, device busy share "
             f"{busy / max(wall, 1e-9):.3f}")
         log(f"profile {prec}: {sum(e.count for e in kern)} kernel launches; "
             f"top kernels by device time:")
-        for e in sorted(kern, key=dev_us, reverse=True)[:20]:
-            log(f"  {dev_us(e) / 1e3:10.3f} ms  x{e.count:6d}  {e.key[:90]}")
+        for e in sorted(kern, key=_dev_us, reverse=True)[:20]:
+            log(f"  {_dev_us(e) / 1e3:10.3f} ms  x{e.count:6d}  {e.key[:90]}")
         log(f"profile {prec}: top operators by device time (their kernels "
             f"included):")
         ops = [e for e in ka if e not in kern]
-        for e in sorted(ops, key=dev_us, reverse=True)[:12]:
-            log(f"  {dev_us(e) / 1e3:10.3f} ms  x{e.count:6d}  {e.key[:90]}")
+        for e in sorted(ops, key=_dev_us, reverse=True)[:12]:
+            log(f"  {_dev_us(e) / 1e3:10.3f} ms  x{e.count:6d}  {e.key[:90]}")
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--phases",
-                   default="identify,kernels,probe,check,requests,quality",
+                   default="identify,kernels,probe,check,requests,train,"
+                           "quality",
                    help="comma list; 'profile' (not run by default) breaks "
                         "one guided evaluation down")
     a = p.parse_args(argv)
@@ -1066,7 +1553,7 @@ def main(argv=None) -> int:
         return 2
     phases = a.phases.split(",")
     results: dict = {}
-    if {"identify", "kernels", "probe"} & set(phases):
+    if {"identify", "kernels", "probe", "train"} & set(phases):
         phase_identify(kernels)
     if "kernels" in phases:
         phase_kernels(results)
@@ -1076,6 +1563,8 @@ def main(argv=None) -> int:
         phase_check()
     if "requests" in phases:
         phase_requests(results)
+    if "train" in phases:
+        phase_train(results)
     if "quality" in phases:
         phase_quality(results)
     if "profile" in phases:
@@ -1095,10 +1584,7 @@ def main(argv=None) -> int:
                          >= r.get("bytes_ms", 0.0) else "bytes"),
             "library_ms": r.get("library_ms"),
             "check": "ok" if r else "not run",
-            "launches_from": ("the probe run" if name in PROBE_PATH else
-                              "the int8 requests"
-                              if name == "fused_stage_int8" else
-                              "the bf16 requests"),
+            "launches_from": LAUNCHES_FROM.get(name, "the bf16 requests"),
             "per": PER.get(name, "one guided evaluation, bf16, main-path "
                                  "shapes")})
     log(f"card: {smi_line()}")

@@ -111,9 +111,19 @@ def test_conv5x3_bf16_matches_xla(rng):
 
 
 def test_conv5x3_weight_grad_raises(rng):
+    """Only the int8 stage (K3) still raises on a weight that requires
+    grad; K1 now returns the weight gradient (``conv_dw_ref`` on the CPU,
+    held to JAX in test_torch_dw.py)."""
+    x = _t(rng.standard_normal((1, 8, 8, 4)))
     w = torch.zeros((5, 3, 4, 4), requires_grad=True)
+    g = _t(rng.standard_normal((1, 8, 8, 4)))
+    tck.conv5x3_dilated(x, w, 1).backward(g)
+    np.testing.assert_array_equal(
+        w.grad.numpy(), tck.conv_dw_ref(x, g, (5, 3), (1, 1)).numpy())
+    qw, sw = tck.quant_weight_per_cout(w.detach())
     with pytest.raises(NotImplementedError):
-        tck.conv5x3_dilated(torch.zeros((1, 8, 8, 4)), w, 1)
+        tck.fused_stage_int8(x, torch.ones((1, 4)), torch.ones((1, 4)),
+                             torch.ones(1), w, kernels.tap_major(qw), sw, 1)
 
 
 # ------------------------------------------------------------------- K2
@@ -237,7 +247,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing(rng):
     assert set(kernels.LAUNCHES) == {"conv5x3", "fused_stage",
                                      "fused_stage_bwd", "filter_fit",
                                      "fused_stage_int8", "probe_gemm",
-                                     "probe_stage"}
+                                     "probe_stage", "dilated_conv",
+                                     "conv_dw", "fused_stage_dw"}
     assert all(n == 0 for n in kernels.LAUNCHES.values())
 
 
