@@ -6,23 +6,26 @@ library name carries a hash of the sources, so an edited kernel rebuilds and
 a stale build is never picked up.  ``build()`` starts one ``nvcc`` per source,
 all at once.
 
-Ten kernels: ``conv5x3`` (K1, ``csrc/conv5x3.cu``), ``fused_stage`` (K2)
-and ``fused_stage_bwd`` (K2's backward), both in ``csrc/fused_stage.cu``,
-``filter_fit`` (the blind sampler's filter fit, ``csrc/filter_fit.cu``),
-``fused_stage_int8`` (K3, the int8 stage, ``csrc/fused_stage_int8.cu``),
-the int8 probe's ``probe_gemm`` (P1) and ``probe_stage`` (P2), both in
-``csrc/probe_int8.cu``, ``dilated_conv`` (K4, any odd kernel and both
-dilations, ``csrc/dilated_conv.cu``), and the weight gradients
-``conv_dw`` (of K1 and K4) and ``fused_stage_dw`` (of K2), both in
-``csrc/conv_dw.cu``.  The launchers here take tensors, check them,
-launch on PyTorch's current stream and raise when the launch status is not
-``cudaSuccess``.  They count their launches in ``LAUNCHES``; nothing else
-touches the counts.
+Eleven kernels: ``conv5x3`` (K1, ``csrc/conv5x3.cu``), ``fused_stage``
+(K2) and ``fused_stage_bwd`` (K2's backward), both in
+``csrc/fused_stage.cu``, ``filter_fit`` (the blind sampler's filter fit,
+``csrc/filter_fit.cu``), ``fused_stage_int8`` (K3, the int8 stage,
+``csrc/fused_stage_int8.cu``), the int8 probe's ``probe_gemm`` (P1) and
+``probe_stage`` (P2), both in ``csrc/probe_int8.cu``, ``dilated_conv``
+(K4, any odd kernel and both dilations, ``csrc/dilated_conv.cu``), and
+in ``csrc/conv_dw.cu`` the weight-gradient GEMM, counted as ``conv_dw``
+(the dw of K1 and K4) or as ``fused_stage_dw`` (the dw of K2, after its
+operand pass ``stage_dw_operands``).  The GEMM's cut (tiles, chunks,
+splits) is made here, by ``dw_plan``, and passed to it.  The launchers
+here take tensors, check them, launch on PyTorch's current stream and
+raise when the launch status is not ``cudaSuccess``.  They count their
+launches in ``LAUNCHES``; nothing else touches the counts.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
@@ -30,6 +33,7 @@ import subprocess
 import threading
 import time
 
+import numpy as np
 import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -39,6 +43,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 # kernel -> (source in csrc/, C entry point, ctypes argtypes)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)
 KERNELS = {
     "conv5x3": ("conv5x3", "babe_conv5x3", [_P] * 4 + [_I] * 7 + [_P]),
     "fused_stage": ("fused_stage", "babe_fused_stage",
@@ -56,13 +61,19 @@ KERNELS = {
                     + [_P]),
     "dilated_conv": ("dilated_conv", "babe_dilated_conv",
                      [_P] * 4 + [_I] * 10 + [_P]),
-    "conv_dw": ("conv_dw", "babe_conv_dw", [_P] * 3 + [_I] * 10 + [_P]),
-    "fused_stage_dw": ("conv_dw", "babe_fused_stage_dw",
-                       [_P] * 7 + [_I] * 6 + [_P]),
+    "conv_dw": ("conv_dw", "babe_conv_dw", [_P] * 4 + [_IP] + [_I] * 2
+                + [_P]),
+    # fused_stage_dw: the operand pass, then the conv_dw GEMM on its output
+    "stage_dw_operands": ("conv_dw", "babe_stage_dw_operands",
+                          [_P] * 8 + [_I] * 5 + [_P]),
+    "fused_stage_dw": ("conv_dw", "babe_conv_dw", [_P] * 4 + [_IP]
+                       + [_I] * 2 + [_P]),
+    # the card's resident blocks for a cut (not a kernel launch)
+    "dw_slots": ("conv_dw", "babe_dw_slots", [_I] * 5),
 }
 SOURCES = tuple(sorted({src for src, _, _ in KERNELS.values()}))
 
-LAUNCHES = {k: 0 for k in KERNELS}
+LAUNCHES = {k: 0 for k in KERNELS if k != "dw_slots"}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -381,6 +392,233 @@ def launch_dilated_conv(x: torch.Tensor, w: torch.Tensor,
     return y
 
 
+# ------------------------------------------------ the weight-gradient GEMM
+
+# routes of csrc/conv_dw.cu (see its head) and the constants it shares
+DW_MMA, DW_SIMT, DW_FOLD = 0, 1, 2
+DW_HEADER = 8          # ints before the chunk table
+DW_STAGES = 3          # the tensor-core route's cp.async ring
+DW_CHUNK = 128         # positions per chunk (tensor-core and simt routes)
+DW_MAX_WARPS = 9
+DW_SIMT_TILE = 64
+DW_FOLD_ROWS, DW_FOLD_WIDE, DW_FOLD_LANES, DW_FOLD_CHUNK = 32, 64, 4, 64
+DW_MAX_SMEM = 232448
+_SMS = 132             # the H100's SMs: one block each unless told more
+
+
+@dataclasses.dataclass(frozen=True)
+class DwPlan:
+    """The cut of one weight gradient, passed to the kernel as its Plan
+    struct: these fields, all ints, in this order.
+
+    Tensor-core and simt routes: block (s, tile) owns kernel row i, taps
+    j0 .. j0+taps-1, input channels c0 .. c0+bm and outputs n0 .. n0+bn
+    (``dw_tile``) and walks chunks seg[i] + s, seg[i] + s + splits, ... <
+    seg[i+1] of the table.  A chunk (b, f0, nf_k, t0) holds pp positions:
+    position p is G's (b, f0 + p // tl, t0 + p % tl) when p // tl < nf_k
+    and t0 + p % tl < T, else padding (zero G).  Its X row for tap j is
+    (b, f0 + p // tl + (i-PF)*df, t0 + p % tl + (j-PT)*dt), zero outside
+    [0, T); the chunks of row i hold only f whose X row is inside [0, F).
+
+    Fold route: block (s, group + groups * wide tile) owns folded rows
+    group*32 .. +32 of the table and wide channels wt*64 .. +64, and walks
+    position chunks s, s + splits, ... < n_chunks of 64 flattened (b, f, t)
+    positions."""
+    route: int
+    B: int
+    F: int
+    T: int
+    C: int
+    N: int
+    KF: int
+    KT: int
+    df: int
+    dt: int
+    bm: int = 0
+    bn: int = 0
+    c_tiles: int = 0
+    n_tiles: int = 0
+    taps: int = 0
+    tap_groups: int = 0
+    tl: int = 0
+    nf: int = 0
+    pp: int = 0
+    xw: int = 0
+    splits: int = 0
+    narrow_x: int = 0
+    wide: int = 0
+    groups: int = 0
+    wide_tiles: int = 0
+    n_chunks: int = 0
+    smem: int = 0
+    threads: int = 0
+    tiles: int = 0
+
+    def meta(self) -> list[int]:
+        return [int(getattr(self, f.name)) for f in dataclasses.fields(self)]
+
+
+def dw_route(dtype, C: int, N: int) -> int:
+    """The tensor-core route for bf16 with both sides of at least 16
+    channels in multiples of 8; the fold route when either side is under
+    16 channels; else CUDA cores."""
+    if min(C, N) < 16:
+        return DW_FOLD
+    if dtype == torch.bfloat16 and C % 8 == 0 and N % 8 == 0:
+        return DW_MMA
+    return DW_SIMT
+
+
+def _first_divisor(width: int, choices) -> int:
+    return next((c for c in choices if width % c == 0), choices[-1])
+
+
+def dw_tile(plan: DwPlan, tile: int) -> tuple[int, int, int, int]:
+    """(i, j0, c0, n0) of grid row ``tile`` (the kernel's tile_at)."""
+    n0 = tile % plan.n_tiles * plan.bn
+    tile //= plan.n_tiles
+    c0 = tile % plan.c_tiles * plan.bm
+    tile //= plan.c_tiles
+    return (tile // plan.tap_groups, tile % plan.tap_groups * plan.taps, c0,
+            n0)
+
+
+def _dw_splits(tiles: int, most: int, slots: int) -> int:
+    """Blocks per tile (at most ``most``, the most chunks of one tile): as
+    many as make the last of at most 4 waves of ``slots`` resident blocks
+    nearly full; fewer blocks (fewer atomics) unless clearly fuller."""
+    best, best_eff = 1, 0.0
+    for s in range(1, most + 1):
+        waves = -(-tiles * s // slots)
+        if waves > 4:
+            break
+        eff = tiles * s / (waves * slots)
+        if eff > best_eff + 0.02:
+            best, best_eff = s, eff
+    return best
+
+
+def dw_plan(B: int, F: int, T: int, C: int, N: int, kshape, dilation,
+            route: int, slots=None) -> tuple[DwPlan, np.ndarray]:
+    """The plan of one weight gradient and its int32 table (see
+    ``DwPlan``).  ``slots(threads, smem)`` says how many blocks of that
+    size the card holds at once (default: one per SM of an H100)."""
+    slots = slots or (lambda threads, smem: _SMS)
+    KF, KT = (int(v) for v in kshape)
+    df, dt = (int(v) for v in dilation)
+    base = dict(route=route, B=B, F=F, T=T, C=C, N=N, KF=KF, KT=KT, df=df,
+                dt=dt)
+    PF, PT = (KF - 1) // 2, (KT - 1) // 2
+    if route == DW_FOLD:
+        narrow_x = int(C < 16)
+        Cn, wide = (C, N) if narrow_x else (N, C)
+        rows = KF * KT * Cn
+        groups = -(-rows // DW_FOLD_ROWS)
+        table = np.full((groups * DW_FOLD_ROWS, 4), -1, np.int32)
+        for r in range(rows):
+            ij, ch = divmod(r, Cn)
+            i, j = divmod(ij, KT)
+            sf, st = (i - PF) * df, (j - PT) * dt
+            if narrow_x:
+                table[r] = (sf, st, ch, (ij * C + ch) * N)
+            else:
+                table[r] = (-sf, -st, ch, ij * C * N + ch)
+        wide_tiles = -(-wide // DW_FOLD_WIDE)
+        n_chunks = -(-(B * F * T) // DW_FOLD_CHUNK)
+        tiles = groups * wide_tiles
+        threads = DW_FOLD_WIDE * DW_FOLD_LANES
+        splits = _dw_splits(tiles, n_chunks, slots(threads, 0))
+        return DwPlan(**base, narrow_x=narrow_x, wide=wide, groups=groups,
+                      wide_tiles=wide_tiles, n_chunks=n_chunks,
+                      splits=splits, threads=threads,
+                      tiles=tiles), table.reshape(-1)
+    if route == DW_MMA:
+        bm = _first_divisor(C, (128, 96, 64, 32))
+        bn = _first_divisor(N, tuple(w for w in (96, 64, 32)
+                                     if bm * w <= 32 * 32 * DW_MAX_WARPS))
+        taps = 3
+    else:
+        bm = bn = DW_SIMT_TILE
+        taps = KT
+    tap_groups = -(-KT // taps)
+    tl, nf = (DW_CHUNK, 1) if T >= DW_CHUNK else (T, DW_CHUNK // T)
+    pp = -(-nf * tl // 16) * 16
+    xw = tl + (KT - 1) * dt
+    segs, parts = [0], []
+    for i in range(KF):
+        sh = (i - PF) * df
+        flo, fhi = max(0, -sh), min(F, F - sh)
+        f0 = np.arange(flo, fhi, nf) if flo < fhi else np.zeros(0, np.int64)
+        t0 = np.arange(0, T, tl)
+        b_, f_, t_ = np.meshgrid(np.arange(B), f0, t0, indexing="ij")
+        ck = np.stack([b_, f_, np.minimum(nf, fhi - f_), t_], -1)
+        parts.append(ck.reshape(-1, 4))
+        segs.append(segs[-1] + len(parts[-1]))
+    header = np.zeros(DW_HEADER, np.int64)
+    header[:KF + 1] = segs
+    table = np.concatenate([header] + [c.reshape(-1) for c in parts])
+    c_tiles, n_tiles = -(-C // bm), -(-N // bn)
+    tiles = KF * tap_groups * c_tiles * n_tiles
+    if route == DW_MMA:
+        XS, GS = 2 * bm + 16, 2 * bn + 16
+        smem = DW_STAGES * (nf * xw * XS + pp * GS) + XS + 16
+        threads = bm * bn // 32
+    else:
+        smem = 4 * DW_SIMT_TILE * (nf * xw + 2 + pp + 1)
+        threads = 256
+    if smem > DW_MAX_SMEM:
+        raise ValueError(f"conv_dw: kernel ({KF},{KT}) dilation ({df},{dt}) "
+                         f"needs {smem} bytes of shared memory")
+    most = max(1, max(segs[i + 1] - segs[i] for i in range(KF)))
+    splits = _dw_splits(tiles, most, slots(threads, smem))
+    return DwPlan(**base, bm=bm, bn=bn, c_tiles=c_tiles, n_tiles=n_tiles,
+                  taps=taps, tap_groups=tap_groups, tl=tl, nf=nf, pp=pp,
+                  xw=xw, splits=splits, smem=smem, threads=threads,
+                  tiles=tiles), table.astype(np.int32)
+
+
+# (shape, kernel, dilation, route, device) -> (plan, meta array, table)
+_DW_PLANS: dict = {}
+
+
+def _dw_gemm(name: str, x: torch.Tensor, g: torch.Tensor, kshape,
+             dilation) -> torch.Tensor:
+    """One launch of the weight-gradient GEMM (checked tensors): dW
+    (KF,KT,C,N) fp32."""
+    B, F, T, C = x.shape
+    N = g.shape[3]
+    kf, kt = (int(v) for v in kshape)
+    df, dt = (int(v) for v in dilation)
+    if not (kf % 2 == 1 and kt % 2 == 1 and kf <= 7 and kt <= 7
+            and df >= 1 and dt >= 1):
+        raise ValueError(f"{name}: kernel ({kf},{kt}) dilation ({df},{dt}) "
+                         f"not supported (odd sizes up to 7)")
+    route = dw_route(x.dtype, C, N)
+    key = (B, F, T, C, N, kf, kt, df, dt, route, x.device)
+    if key not in _DW_PLANS:
+        def slots(threads, smem):
+            n = _entry("dw_slots")(route, threads, smem, kt,
+                                   _DTYPES[x.dtype])
+            if n <= 0:
+                raise RuntimeError(f"{name}: occupancy query failed: "
+                                   f"cudaError {-n}")
+            return n
+
+        plan, table = dw_plan(B, F, T, C, N, (kf, kt), (df, dt), route,
+                              slots)
+        meta = plan.meta()
+        _DW_PLANS[key] = ((ctypes.c_int * len(meta))(*meta), len(meta),
+                          torch.as_tensor(table).to(x.device))
+    meta, n_meta, table = _DW_PLANS[key]
+    dw = torch.zeros((kf, kt, C, N), dtype=torch.float32, device=x.device)
+    rc = _entry(name)(x.data_ptr(), g.data_ptr(), dw.data_ptr(),
+                      table.data_ptr(), meta, n_meta, _DTYPES[x.dtype],
+                      _stream(x))
+    _status(name, rc)
+    LAUNCHES[name] += 1
+    return dw
+
+
 def launch_conv_dw(x: torch.Tensor, g: torch.Tensor, kshape,
                    dilation) -> torch.Tensor:
     """The weight gradient of a 'SAME' conv on the card: x (B,F,T,C) the
@@ -394,38 +632,37 @@ def launch_conv_dw(x: torch.Tensor, g: torch.Tensor, kshape,
         raise ValueError(f"conv_dw: g must be ({B},{F},{T},N), got "
                          f"{tuple(g.shape)}")
     _check(g, "conv_dw g", x.dtype)
-    kf, kt = (int(v) for v in kshape)
-    df, dt = (int(v) for v in dilation)
-    N = g.shape[3]
-    dw = torch.zeros((kf, kt, C, N), dtype=torch.float32, device=x.device)
-    fn = _entry("conv_dw")
-    rc = fn(x.data_ptr(), g.data_ptr(), dw.data_ptr(), B, F, T, C, N, kf, kt,
-            df, dt, _DTYPES[x.dtype], _stream(x))
-    _status("conv_dw", rc)
-    LAUNCHES["conv_dw"] += 1
-    return dw
+    return _dw_gemm("conv_dw", x, g, kshape, dilation)
+
+
+def launch_stage_dw_operands(x, a, s, y, g_y, g_mom):
+    """The operands of one K2 stage's weight gradient on the card: h =
+    gelu(x*a) and gc = g_pre*s (B,F,T,C) in x's dtype, rounded in K2's
+    order (plain version ``ops/conv_kernels.stage_dw_operands_ref``)."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"stage_dw_operands: unsupported dtype {x.dtype}")
+    _check(x, "stage_dw_operands x")
+    B, F, T, C = x.shape
+    for t, what in ((y, "y"), (g_y, "g_y")):
+        _check(t, f"stage_dw_operands {what}", x.dtype, (B, F, T, C))
+    _check(a, "stage_dw_operands a", torch.float32, (B, C))
+    _check(s, "stage_dw_operands s", torch.float32, (B, C))
+    _check(g_mom, "stage_dw_operands g_mom", torch.float32, (2, B, C))
+    h, gc = torch.empty_like(x), torch.empty_like(x)
+    rc = _entry("stage_dw_operands")(
+        x.data_ptr(), a.data_ptr(), s.data_ptr(), y.data_ptr(),
+        g_y.data_ptr(), g_mom.data_ptr(), h.data_ptr(), gc.data_ptr(), B, F,
+        T, C, _DTYPES[x.dtype], _stream(x))
+    _status("stage_dw_operands", rc)
+    LAUNCHES["stage_dw_operands"] += 1
+    return h, gc
 
 
 def launch_fused_stage_dw(x, a, s, y, g_y, g_mom, d: int) -> torch.Tensor:
-    """The weight gradient of one K2 stage on the card: the conv input is
-    gelu(x*a) and the conv output's cotangent g_pre*s, both formed in the
-    kernel from the stage's input x, output y and the cotangents g_y, g_mom
-    (see ``ops/conv_kernels.dil_stage_dw_ref``).  Returns dW (5,3,C,C)
-    fp32."""
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"fused_stage_dw: unsupported dtype {x.dtype}")
-    _check(x, "fused_stage_dw x")
-    B, F, T, C = x.shape
-    for t, what in ((y, "y"), (g_y, "g_y")):
-        _check(t, f"fused_stage_dw {what}", x.dtype, (B, F, T, C))
-    _check(a, "fused_stage_dw a", torch.float32, (B, C))
-    _check(s, "fused_stage_dw s", torch.float32, (B, C))
-    _check(g_mom, "fused_stage_dw g_mom", torch.float32, (2, B, C))
-    dw = torch.zeros((5, 3, C, C), dtype=torch.float32, device=x.device)
-    fn = _entry("fused_stage_dw")
-    rc = fn(x.data_ptr(), a.data_ptr(), s.data_ptr(), y.data_ptr(),
-            g_y.data_ptr(), g_mom.data_ptr(), dw.data_ptr(), B, F, T, C,
-            int(d), _DTYPES[x.dtype], _stream(x))
-    _status("fused_stage_dw", rc)
-    LAUNCHES["fused_stage_dw"] += 1
-    return dw
+    """The weight gradient of one K2 stage on the card, in two launches:
+    ``stage_dw_operands`` forms the conv input gelu(x*a) and the conv
+    output's cotangent g_pre*s from the stage's input x, output y and the
+    cotangents g_y, g_mom into scratch, then the weight-gradient GEMM (see
+    ``ops/conv_kernels.dil_stage_dw_ref``).  Returns dW (5,3,C,C) fp32."""
+    h, gc = launch_stage_dw_operands(x, a, s, y, g_y, g_mom)
+    return _dw_gemm("fused_stage_dw", h, gc, (5, 3), (int(d), 1))

@@ -17,8 +17,9 @@ Counterpart of ``babe_tpu/ops/conv_kernels.py``.  Layout is channels-last
     on CUDA one launch of the same tile in its backward mode (the conv
     transpose with the vjp's elementwise chain fused around it), on the
     CPU ``dil_stage_bwd_ref``.  The weight's gradient is ``fused_stage_dw``
-    (``csrc/conv_dw.cu``; plain version ``dil_stage_dw_ref``), which forms
-    gelu(x*a) and the conv output's cotangent in its own prologue.
+    (``csrc/conv_dw.cu``; plain version ``dil_stage_dw_ref``): an operand
+    pass forms gelu(x*a) and the conv output's cotangent into scratch
+    (``stage_dw_operands_ref``), then ``conv_dw``'s GEMM reduces them.
   * ``fused_stage_int8`` (K3): the same stage with the conv in int8:
     q = int8(gelu6(x*a) * 127/bound), acc = conv5x3_d(q, qw) in int32,
     y = x/sqrt2 + acc*post in fp32, moments [sum y, sum y^2, max |y|] of
@@ -262,15 +263,22 @@ def dil_stage_bwd_ref(x, a, s, w, y, c, g_y, g_mom, d: int):
     return dx, da, ds
 
 
+def stage_dw_operands_ref(x, a, s, y, g_y, g_mom):
+    """Plain version of ``stage_dw_operands``: the operands of one K2
+    stage's weight gradient, h = gelu(x*a) and the conv output's cotangent
+    g_pre*s, each formed in x's dtype in the reference's order."""
+    dt = x.dtype
+    h = _gelu_impl(x * _bcast(a, dt))
+    gc = _stage_gpre(x, y, g_y, g_mom) * _bcast(s, dt)
+    return h, gc
+
+
 def dil_stage_dw_ref(x, a, s, y, g_y, g_mom, d: int):
     """Plain version of ``fused_stage_dw``: the weight gradient of one K2
     stage (the vjp of the JAX ``_dil_stage_ref`` with respect to w), the
     per-tap fp32 sums of h = gelu(x*a) against the conv output's cotangent
-    g_pre*s, each formed in x's dtype in the reference's order.  Returns
-    (5, 3, C, C) fp32."""
-    dt = x.dtype
-    h = _gelu_impl(x * _bcast(a, dt))
-    gc = _stage_gpre(x, y, g_y, g_mom) * _bcast(s, dt)
+    g_pre*s (``stage_dw_operands_ref``).  Returns (5, 3, C, C) fp32."""
+    h, gc = stage_dw_operands_ref(x, a, s, y, g_y, g_mom)
     return conv_dw_ref(h, gc, (5, 3), (d, 1))
 
 

@@ -24,8 +24,12 @@ Phases (any failure exits non-zero; no phase catches and carries on):
                 4), then through its entry point (forward and dx) at those
                 shapes with its launches counted; the weight gradients
                 conv_dw (the 7 pyramid convs and their transposed shapes)
-                and fused_stage_dw (every distinct stage shape) at the
-                training batch (4 x 184184 samples).  Each shape also gets
+                and fused_stage_dw with its operand pass
+                stage_dw_operands (every distinct stage shape) at the
+                training batch (4 x 184184 samples), then both at the edge
+                shapes of their cut (rows spanning chunks, ragged T, 96
+                channels, the folded narrow side, d = 64 on F = 384) and
+                conv_dw at K4's kernels with dt = 2.  Each shape also gets
                 its time, its bound, the plain version's time and a cuDNN
                 yardstick (a conv, or its weight gradient; bf16 for K3: no
                 PyTorch call computes an int8 conv).
@@ -104,6 +108,9 @@ REPLACES = {
     # linear_transpose of conv_xla in w, and K2's vjp of _dil_stage_ref
     "conv_dw": "babe_tpu/ops/conv_kernels.py:600",
     "fused_stage_dw": "babe_tpu/ops/conv_kernels.py:1090",
+    # the prologues of that vjp (gelu(x*a), and the cotangent of the conv
+    # output), formed for the weight gradient's GEMM
+    "stage_dw_operands": "babe_tpu/ops/conv_kernels.py:1090",
 }
 SOURCES = {
     "conv5x3": "babe_tpu_torch/csrc/conv5x3.cu",
@@ -115,6 +122,7 @@ SOURCES = {
     "probe_stage": "babe_tpu_torch/csrc/probe_int8.cu",
     "dilated_conv": "babe_tpu_torch/csrc/dilated_conv.cu",
     "conv_dw": "babe_tpu_torch/csrc/conv_dw.cu",
+    "stage_dw_operands": "babe_tpu_torch/csrc/conv_dw.cu",
     "fused_stage_dw": "babe_tpu_torch/csrc/conv_dw.cu",
 }
 # what each kernel's ms, plain_ms, bound_ms and library_ms sum over
@@ -135,10 +143,15 @@ PER = {
     "conv_dw": "one training step (flagship, batch 4, 184184 samples), "
                "bf16: the 7 pyramid convs' weight gradients; library_ms is "
                "cuDNN's weight gradient (aten.convolution_backward)",
+    "stage_dw_operands": "one training step (flagship, batch 4, 184184 "
+                         "samples), bf16: the 75 stages' operand passes "
+                         "(also inside fused_stage_dw's ms); no PyTorch "
+                         "call computes them",
     "fused_stage_dw": "one training step (flagship, batch 4, 184184 "
-                      "samples), bf16: the 75 stages' weight gradients; "
-                      "library_ms is cuDNN's weight gradient of the same "
-                      "conv (without the prologues)",
+                      "samples), bf16: the 75 stages' weight gradients, "
+                      "each its operand pass and its GEMM; library_ms is "
+                      "cuDNN's weight gradient of the same conv (without "
+                      "the prologues)",
 }
 # where each kernel's launch count comes from
 LAUNCHES_FROM = {
@@ -146,6 +159,7 @@ LAUNCHES_FROM = {
     "fused_stage_int8": "the int8 requests",
     "dilated_conv": "the K4 entry-point run of the kernels phase",
     "conv_dw": "the train phase (all its steps)",
+    "stage_dw_operands": "the train phase (all its steps)",
     "fused_stage_dw": "the train phase (all its steps)",
 }
 # the weight gradients are summed over up to 2.9M positions in another
@@ -154,7 +168,8 @@ LAUNCHES_FROM = {
 DW_TOL = {"max_rel": 1e-4, "l2_rel": 5e-5}
 # the kernels the train phase must launch, each an exact count per step
 TRAIN_PATH = ("conv5x3", "fused_stage", "fused_stage_bwd", "conv_dw",
-              "fused_stage_dw")
+              "stage_dw_operands", "fused_stage_dw")
+DW_KERNELS = ("conv_dw", "stage_dw_operands", "fused_stage_dw")
 # the kernels each request path must launch; the probe's run on its own path
 BF16_PATH = ("conv5x3", "fused_stage", "fused_stage_bwd", "filter_fit")
 INT8_PATH = BF16_PATH + ("fused_stage_int8",)
@@ -414,15 +429,18 @@ def phase_kernels(results: dict):
     ok &= _kernel_filter_fit(agg["filter_fit"])
     ok &= _kernel_k4(account, results)
     ok &= _kernel_dw(account, k1_shapes, k2_shapes)
+    agg["stage_dw_operands"]["library_ms"] = None
     for name, a in agg.items():
         if name == "filter_fit":
             continue  # logged by _kernel_filter_fit
-        per = ("one training step" if name in ("conv_dw", "fused_stage_dw")
+        per = ("one training step" if name in DW_KERNELS
                else "one forward at each level shape" if name ==
                "dilated_conv" else "guided evaluation")
+        lib = ("none" if a["library_ms"] is None
+               else f"{a['library_ms']:.3f}")
         log(f"{name}: per {per} (bf16, main-path shapes and "
             f"counts) ms={a['ms']:.3f} bound_ms={a['bound_ms']:.3f} "
-            f"plain_ms={a['plain_ms']:.3f} cudnn_ms={a['library_ms']:.3f}"
+            f"plain_ms={a['plain_ms']:.3f} cudnn_ms={lib}"
             f"{' (bf16 conv)' if name == 'fused_stage_int8' else ''} "
             f"achieved={a['flops'] / max(a['ms'], 1e-9) / 1e9:.1f} TOP/s")
     results.update(agg)
@@ -534,13 +552,35 @@ def _kernel_k4(account, results) -> bool:
     return ok
 
 
+# conv_dw's edge shapes (B, F, T, C, N, kernel, dilation): chunks that
+# span f rows (T = 32), a ragged T (20, 80), 96 channels, the folded narrow
+# side (C = 2, N = 2), d = 64 on F = 384 (the rows outside the image are
+# skipped), then K4's kernels at dt = 2 on the fold and tensor-core routes
+DW_EDGE = [(2, 64, 32, 96, 96, (5, 3), (2, 1)),
+           (2, 48, 20, 64, 128, (5, 3), (1, 1)),
+           (1, 64, 80, 96, 64, (5, 3), (4, 1)),
+           (2, 40, 20, 2, 96, (5, 3), (1, 1)),
+           (2, 40, 20, 96, 2, (5, 3), (1, 1)),
+           (1, 384, 32, 256, 256, (5, 3), (64, 1))] + [
+    (2, 16, 64, C, C, k, (2, 2)) for k in ((3, 3), (7, 3), (3, 5))
+    for C in (8, 64)]
+# fused_stage_dw's edge shapes (B, F, T, C, d): T = 32 at 96 channels, a
+# ragged T, d = 64 on F = 384 at T = 32, channels that no tile divides
+# (24) and the fold route (8)
+DW_STAGE_EDGE = [(2, 64, 32, 96, 2), (2, 48, 20, 64, 1),
+                 (1, 384, 32, 256, 64), (1, 40, 20, 24, 1),
+                 (1, 16, 40, 8, 2)]
+
+
 def _kernel_dw(account, k1_shapes, k2_shapes, B: int = 4) -> bool:
-    """The weight-gradient kernels against their plain versions at the
-    training batch (B = 4, 184184 samples), bf16 and fp32: ``conv_dw`` at
-    the 7 pyramid convs (1 per step) and at their 7 transposed shapes
-    (C = Ns, N = 2; a check, count 0), ``fused_stage_dw`` at every distinct
-    stage shape (its stages per step), each with its time, bound, plain
-    time and cuDNN's weight gradient."""
+    """The weight-gradient kernels against their plain versions, bf16 and
+    fp32: at the training batch (B = 4, 184184 samples) ``conv_dw`` at the
+    7 pyramid convs (1 per step) and at their 7 transposed shapes (C = Ns,
+    N = 2; a check, count 0), ``fused_stage_dw`` and its operand pass
+    ``stage_dw_operands`` at every distinct stage shape (its stages per
+    step), each with its time, bound, plain time and cuDNN's weight
+    gradient; then both at their edge shapes (``DW_EDGE``,
+    ``DW_STAGE_EDGE``), checked only."""
     import torch
 
     from babe_tpu_torch import kernels
@@ -557,6 +597,43 @@ def _kernel_dw(account, k1_shapes, k2_shapes, B: int = 4) -> bool:
                          f"{e[1]:.2e} l2_rel={e[2]:.2e} "
                          f"{'ok' if good else 'FAIL'}")
 
+    def route(dtype, C, N):
+        return ("mma", "simt", "fold")[kernels.dw_route(dtype, C, N)]
+
+    def conv_case(Bc, F, T, C, N, ks, dil, dtype, dn):
+        x = torch.randn((Bc, F, T, C), generator=g, device=dev).to(dtype)
+        gy = torch.randn((Bc, F, T, N), generator=g, device=dev).to(dtype)
+        dw = kernels.launch_conv_dw(x, gy, ks, dil)
+        ref = ck.conv_dw_ref(x, gy, ks, dil)
+        torch.cuda.synchronize()
+        return x, gy, judge(
+            f"conv_dw [{route(dtype, C, N)}] B={Bc} F={F:3d} T={T:4d} "
+            f"C={C:3d} N={N:3d} k={ks} dil={dil}", dw, ref, dn)
+
+    def stage_case(Bs, F, T, C, d, dtype, dn):
+        x = torch.randn((Bs, F, T, C), generator=g, device=dev).to(dtype)
+        w = (torch.randn((5, 3, C, C), generator=g, device=dev)
+             / math.sqrt(15 * C)).to(dtype)
+        a = 0.5 + torch.rand((Bs, C), generator=g, device=dev)
+        s = torch.randn((Bs, C), generator=g, device=dev)  # opened gate
+        y, _ = ck.dil_stage_ref(x, a, s, w, d)
+        gy = torch.randn((Bs, F, T, C), generator=g, device=dev).to(dtype)
+        gm = torch.randn((2, Bs, C), generator=g, device=dev) / (F * T)
+        args = (x, a, s, y, gy, gm)
+        h, gc = kernels.launch_stage_dw_operands(*args)
+        rh, rgc = ck.stage_dw_operands_ref(*args)
+        dw = kernels.launch_fused_stage_dw(*args, d)
+        ref = ck.dil_stage_dw_ref(*args, d)
+        torch.cuda.synchronize()
+        eo = max(errs(h, rh), errs(gc, rgc), key=lambda e: e[1])
+        good_o = within(errs(h, rh), dn) and within(errs(gc, rgc), dn)
+        e, good, line = judge(
+            f"fused_stage_dw [{route(dtype, C, C)}] B={Bs} F={F:3d} "
+            f"T={T:4d} C={C:3d} d={d:2d}", dw, ref, dn)
+        line += (f"; operands h, g_pre*s max_rel={eo[1]:.2e} l2_rel="
+                 f"{eo[2]:.2e} {'ok' if good_o else 'FAIL'}")
+        return args, (e, eo), good and good_o, line
+
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[-1]
         isz = torch.tensor([], dtype=dtype).element_size()
@@ -564,14 +641,8 @@ def _kernel_dw(account, k1_shapes, k2_shapes, B: int = 4) -> bool:
             if role == "stage shape":
                 continue
             count = 1 if role == "pyramid fwd" else 0
-            x = torch.randn((B, F, T, C), generator=g, device=dev).to(dtype)
-            gy = torch.randn((B, F, T, N), generator=g, device=dev).to(dtype)
-            dw = kernels.launch_conv_dw(x, gy, (5, 3), (d, 1))
-            ref = ck.conv_dw_ref(x, gy, (5, 3), (d, 1))
-            torch.cuda.synchronize()
-            e, good, line = judge(
-                f"conv_dw {role:11s} B={B} F={F:3d} T={T:4d} C={C:3d} "
-                f"N={N:3d} x{count}", dw, ref, dn)
+            x, gy, (e, good, line) = conv_case(B, F, T, C, N, (5, 3), (d, 1),
+                                               dtype, dn)
             ok &= good
             t_k = cuda_time(lambda: kernels.launch_conv_dw(
                 x, gy, (5, 3), (d, 1)))
@@ -581,39 +652,44 @@ def _kernel_dw(account, k1_shapes, k2_shapes, B: int = 4) -> bool:
             flops = 2.0 * B * F * T * 15 * C * N
             nbytes = B * F * T * (C + N) * isz + 15 * C * N * 4
             b, by = bound_ms(flops, nbytes, dtype)
-            log(f"{line} | ms={t_k:.4f} bound={b:.4f}({by}) plain={t_p:.4f} "
-                f"cudnn={t_l:.4f}")
+            log(f"{line} {role} x{count} | ms={t_k:.4f} bound={b:.4f}({by}) "
+                f"plain={t_p:.4f} cudnn={t_l:.4f}")
             account("conv_dw", count, dtype, t_k, t_p, t_l, flops, nbytes, e)
         for (F, T, C, d), count in sorted(k2_shapes.items()):
-            x = torch.randn((B, F, T, C), generator=g, device=dev).to(dtype)
-            w = (torch.randn((5, 3, C, C), generator=g, device=dev)
-                 / math.sqrt(15 * C)).to(dtype)
-            a = 0.5 + torch.rand((B, C), generator=g, device=dev)
-            s = torch.randn((B, C), generator=g, device=dev)  # opened gate
-            y, _ = ck.dil_stage_ref(x, a, s, w, d)
-            gy = torch.randn((B, F, T, C), generator=g, device=dev).to(dtype)
-            gm = torch.randn((2, B, C), generator=g, device=dev) / (F * T)
-            dw = kernels.launch_fused_stage_dw(x, a, s, y, gy, gm, d)
-            ref = ck.dil_stage_dw_ref(x, a, s, y, gy, gm, d)
-            torch.cuda.synchronize()
-            e, good, line = judge(
-                f"fused_stage_dw B={B} F={F:3d} T={T:4d} C={C:3d} d={d:2d} "
-                f"x{count}", dw, ref, dn)
+            args, (e, eo), good, line = stage_case(B, F, T, C, d, dtype, dn)
             ok &= good
-            t_k = cuda_time(lambda: kernels.launch_fused_stage_dw(
-                x, a, s, y, gy, gm, d))
-            t_p = cuda_time(lambda: ck.dil_stage_dw_ref(
-                x, a, s, y, gy, gm, d), reps=2)
-            h = ck._gelu_impl(x * a[:, None, None, :].to(dtype))
-            gc = ck._stage_gpre(x, y, gy, gm) * s[:, None, None, :].to(dtype)
+            t_k = cuda_time(lambda: kernels.launch_fused_stage_dw(*args, d))
+            t_p = cuda_time(lambda: ck.dil_stage_dw_ref(*args, d), reps=2)
+            t_o = cuda_time(lambda: kernels.launch_stage_dw_operands(*args))
+            t_op = cuda_time(lambda: ck.stage_dw_operands_ref(*args), reps=2)
+            h, gc = ck.stage_dw_operands_ref(*args)
             t_l = cuda_time(_library_wgrad(h, gc, (5, 3), (d, 1)))
-            flops = 2.0 * B * F * T * 15 * C * C
-            nbytes = 3 * B * F * T * C * isz + 4 * 4 * B * C + 15 * C * C * 4
+            del h, gc
+            n_el = B * F * T * C
+            flops = 2.0 * n_el * 15 * C
+            nbytes = 3 * n_el * isz + 4 * 4 * B * C + 15 * C * C * 4
             b, by = bound_ms(flops, nbytes, dtype)
-            log(f"{line} | ms={t_k:.4f} bound={b:.4f}({by}) plain={t_p:.4f} "
-                f"cudnn={t_l:.4f}")
+            # the operand pass: x, y, g_y read, h, g_pre*s written; about
+            # 40 fp32 operations per element (the gelu polynomial, the
+            # fold of the moments' cotangent and the roundings)
+            o_flops, o_bytes = 40.0 * n_el, 5 * n_el * isz + 4 * 4 * B * C
+            bo, byo = bound_ms(o_flops, o_bytes, torch.float32)
+            log(f"{line} x{count} | ms={t_k:.4f} bound={b:.4f}({by}) "
+                f"plain={t_p:.4f} cudnn={t_l:.4f}; operand pass "
+                f"ms={t_o:.4f} bound={bo:.4f}({byo}) plain={t_op:.4f}")
             account("fused_stage_dw", count, dtype, t_k, t_p, t_l, flops,
                     nbytes, e)
+            account("stage_dw_operands", count, dtype, t_o, t_op, 0.0,
+                    o_flops, o_bytes, eo, op_dtype=torch.float32)
+        for Bc, F, T, C, N, ks, dil in DW_EDGE:
+            _, _, (e, good, line) = conv_case(Bc, F, T, C, N, ks, dil, dtype,
+                                              dn)
+            ok &= good
+            log(f"{line} (edge)")
+        for Bs, F, T, C, d in DW_STAGE_EDGE:
+            _, _, good, line = stage_case(Bs, F, T, C, d, dtype, dn)
+            ok &= good
+            log(f"{line} (edge)")
     return ok
 
 
@@ -1201,8 +1277,8 @@ def train_launches_per_step(net) -> dict:
     """Each path kernel's launches in one training step of ``net``: K1 and
     conv_dw once per (5,3) conv outside the ResnetBlocks (the pyramid
     convs; their inputs need no gradient, so no dx), K2 once per fused
-    stage and once more when remat recomputes the block, K2's backward and
-    fused_stage_dw once per stage."""
+    stage and once more when remat recomputes the block, K2's backward,
+    stage_dw_operands and fused_stage_dw once per stage."""
     from babe_tpu_torch.models.blocks import Conv2d, ResnetBlock
 
     stages = sum(b.num_dils for b in net.modules()
@@ -1211,7 +1287,8 @@ def train_launches_per_step(net) -> dict:
               if isinstance(m, Conv2d) and m.kernel_size == (5, 3))
     return {"conv5x3": pyr, "conv_dw": pyr,
             "fused_stage": stages * (2 if net.remat else 1),
-            "fused_stage_bwd": stages, "fused_stage_dw": stages}
+            "fused_stage_bwd": stages, "stage_dw_operands": stages,
+            "fused_stage_dw": stages}
 
 
 def _seeded_wavs(folder: str, n: int, seconds: float, fs: int, seed: int):
@@ -1378,7 +1455,7 @@ def phase_train(results: dict, steps: int = 5, untimed: int = 2):
                             "peak_gib": peak / 2**30,
                             "busy_share": busy / pwall}
         results.setdefault("launches", {}).update(
-            {k: counts[k] for k in ("conv_dw", "fused_stage_dw")})
+            {k: counts[k] for k in DW_KERNELS})
         del m
         torch.cuda.empty_cache()
     finally:

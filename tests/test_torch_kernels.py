@@ -248,7 +248,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing(rng):
                                      "fused_stage_bwd", "filter_fit",
                                      "fused_stage_int8", "probe_gemm",
                                      "probe_stage", "dilated_conv",
-                                     "conv_dw", "fused_stage_dw"}
+                                     "conv_dw", "stage_dw_operands",
+                                     "fused_stage_dw"}
     assert all(n == 0 for n in kernels.LAUNCHES.values())
 
 
