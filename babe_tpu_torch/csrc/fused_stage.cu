@@ -15,8 +15,10 @@
 // backward needs it for the gate gradient ds, and one extra write is cheaper
 // than recomputing the conv.
 //
-// The backward (babe_fused_stage_bwd) is the same tile in its kBwd mode:
-// the conv transpose (flipped, io-swapped kernel) of one stage with the
+// The backward (babe_fused_stage_bwd) runs, in bf16 at the engine's shapes
+// (kernels.stage_bwd_route; every flagship stage), the sm_90a engine of
+// stage_mma_sm90.cuh, and otherwise the same tile in its kBwd mode: the
+// conv transpose (flipped, io-swapped kernel) of one stage with the
 // elementwise chain of the reference's vjp fused around it.  The prologue
 // folds the moments' cotangent into y's (g = g_y + g_m0 + 2 y g_m1),
 // divides by sqrt2 and applies the gate s; the epilogue multiplies by
@@ -35,7 +37,10 @@
 // (block-level partial sums in shared memory, then one global atomic per
 // channel and block), so the summation order, and the last bits of the
 // moments, vary from run to run.
+#include <string.h>
+
 #include "conv5x3_mma.cuh"
+#include "stage_mma_sm90.cuh"
 
 extern "C" int babe_fused_stage(const void* x, const void* a, const void* s,
                                 const void* w, const void* wt, void* y,
@@ -62,13 +67,38 @@ extern "C" int babe_fused_stage(const void* x, const void* a, const void* s,
   return (int)cudaErrorInvalidValue;
 }
 
+// route 1: the sm_90a engine (stage_mma_sm90.cuh) with the cut in meta (a
+// StagePlan), the packed weights wpk and its input gc = g_pre * s (s is
+// then read only through gc); route 0: the kBwd tile with w_t
+// (the flipped, io-swapped kernel, HWIO) and w_tt (it tap-major)
 extern "C" int babe_fused_stage_bwd(const void* g_y, const void* g_mom,
                                     const void* y, const void* x,
                                     const void* c, const void* a,
                                     const void* s, const void* w_t,
-                                    const void* w_tt, void* dx, void* dsda,
-                                    int B, int F, int T, int C, int d,
-                                    int dtype, void* stream) {
+                                    const void* w_tt, const void* wpk,
+                                    const void* gc, void* dx, void* dsda,
+                                    int B, int F, int T,
+                                    int C, int d, int dtype, const int* meta,
+                                    int n_meta, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n_meta != (int)(sizeof(babe::sm90::StagePlan) / sizeof(int)))
+    return (int)cudaErrorInvalidValue;
+  babe::sm90::StagePlan plan;
+  memcpy(&plan, meta, sizeof(plan));
+  if (plan.route == 1) {
+    if (dtype != 1 || plan.B != B || plan.F != F || plan.T != T ||
+        plan.C != C || plan.d != d)
+      return (int)cudaErrorInvalidValue;
+    if (B <= 0 || F <= 0 || T <= 0) return 0;
+    using bf = __nv_bfloat16;
+    babe::sm90::StageArgs g{
+        static_cast<const bf*>(gc), static_cast<const bf*>(g_y),
+        static_cast<const float*>(g_mom), static_cast<const bf*>(y),
+        static_cast<const bf*>(x), static_cast<const bf*>(c),
+        static_cast<const float*>(a), static_cast<const bf*>(wpk),
+        static_cast<bf*>(dx), static_cast<float*>(dsda)};
+    return babe::sm90::launch_stage_bwd(plan, g, st);
+  }
   babe::ConvParams p{};
   p.x = g_y;
   p.w = w_t;
@@ -86,7 +116,6 @@ extern "C" int babe_fused_stage_bwd(const void* g_y, const void* g_mom,
   p.C = C;
   p.N = C;
   p.d = d;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return babe::launch_conv5x3<float, babe::kBwd>(p, w_tt, st);
   if (dtype == 1)
     return babe::launch_conv5x3<__nv_bfloat16, babe::kBwd>(p, w_tt, st);

@@ -15,8 +15,12 @@ Eleven kernels: ``conv5x3`` (K1, ``csrc/conv5x3.cu``), ``fused_stage``
 (K4, any odd kernel and both dilations, ``csrc/dilated_conv.cu``), and
 in ``csrc/conv_dw.cu`` the weight-gradient GEMM, counted as ``conv_dw``
 (the dw of K1 and K4) or as ``fused_stage_dw`` (the dw of K2, after its
-operand pass ``stage_dw_operands``).  The GEMM's cut (tiles, chunks,
-splits) is made here, by ``dw_plan``, and passed to it.  The launchers
+operand pass ``stage_dw_operands``, which also forms the input of K2's
+backward engine).  Each call's route and cut is made here and passed to
+the kernel: the GEMM's tiles, chunks and splits by ``dw_plan``, K1's
+route (tiles, narrow in, narrow out) by ``conv5x3_route`` and
+``conv5x3_plan``, K2's backward's (the kBwd tile or the sm_90a engine) by
+``stage_bwd_route`` and ``stage_bwd_plan``.  The launchers
 here take tensors, check them, launch on PyTorch's current stream and
 raise when the launch status is not ``cudaSuccess``.  They count their
 launches in ``LAUNCHES``; nothing else touches the counts.
@@ -45,11 +49,12 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _IP = ctypes.POINTER(ctypes.c_int)
 KERNELS = {
-    "conv5x3": ("conv5x3", "babe_conv5x3", [_P] * 4 + [_I] * 7 + [_P]),
+    "conv5x3": ("conv5x3", "babe_conv5x3", [_P] * 4 + [_I] * 7
+                + [_IP, _I, _P]),
     "fused_stage": ("fused_stage", "babe_fused_stage",
                     [_P] * 8 + [_I] * 6 + [_P]),
     "fused_stage_bwd": ("fused_stage", "babe_fused_stage_bwd",
-                        [_P] * 11 + [_I] * 6 + [_P]),
+                        [_P] * 13 + [_I] * 6 + [_IP, _I, _P]),
     "filter_fit": ("filter_fit", "babe_filter_fit",
                    [_P] * 5 + [_I] * 3 + [_F] * 4 + [_I] * 3 + [_F] * 4
                    + [_P]),
@@ -182,21 +187,157 @@ def tap_major(w: torch.Tensor) -> torch.Tensor:
     return w.permute(0, 1, 3, 2).reshape(kf * kt, N, C).contiguous()
 
 
-def launch_conv5x3(x: torch.Tensor, w: torch.Tensor, d: int) -> torch.Tensor:
-    """K1 on the card: x (B,F,T,C), w (5,3,C,N) of x's dtype -> (B,F,T,N)."""
+# ------------------------------------------------ K1's routes and cuts
+
+# routes of csrc/conv5x3.cu: the tiles of conv5x3_mma.cuh/conv5x3_tile.cuh,
+# or one of conv5x3_narrow.cuh's, and the constants it shares
+K1_TILE, K1_NARROW_IN, K1_NARROW_OUT = 0, 1, 2
+K1_POS = 128           # positions per narrow block
+K1_PX = 24             # bf16 per staged pixel or weight row (16 + pad)
+K1_RING = 3            # narrow out's cp.async ring
+K1_OUT_UNITS = 7       # narrow out's 16-byte window units per thread
+MAX_SMEM = 232448      # dynamic shared memory one block may use on sm_90
+
+
+def _r128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+def _tile_rows(T: int, pos: int, lo: int) -> tuple[int, int]:
+    """(TT, TF): a power of two TT >= min(T, pos), at least ``lo``, and TF
+    = pos // TT rows of F, so TT * TF == pos positions."""
+    TT = lo
+    while TT < T and TT < pos:
+        TT *= 2
+    return TT, pos // TT
+
+
+def conv5x3_route(dtype, C: int, N: int) -> int:
+    """K1's route: bf16 with a narrow input (C <= 8, N <= 256: the pyramid
+    convs, C = 2) or a narrow output (N <= 8, C a multiple of 8: their
+    input gradients, N = 2) takes its narrow route; everything else the
+    tiles (tensor cores for bf16 with T >= 16 and C >= 16, else CUDA
+    cores)."""
+    if dtype == torch.bfloat16:
+        if C <= 8 and N <= 256:
+            return K1_NARROW_IN
+        if N <= 8 and C % 8 == 0:
+            return K1_NARROW_OUT
+    return K1_TILE
+
+
+@dataclasses.dataclass(frozen=True)
+class K1Plan:
+    """The cut of one K1 call, passed to the kernel as its K1Plan struct:
+    these fields, all ints, in this order.  Narrow routes: block (gx, gy,
+    b) owns the 128 positions f0 + q // TT, t0 + q % TT (q < 128, f0 = gy *
+    TF, t0 = gx * TT).  Narrow in: an im2col of kp - 8 = 16 * ks columns
+    (k = tap * C + c, zero past 15 * C) against ng groups of 32 output
+    channels.  Narrow out: nch chunks of 16 input channels, each staged
+    with its 5 * TF * (TT + 2) window pixels (``win_px``)."""
+    route: int
+    B: int
+    F: int
+    T: int
+    C: int
+    N: int
+    d: int
+    tt_log2: int = 0
+    TT: int = 0
+    TF: int = 0
+    ng: int = 0
+    kp: int = 0
+    op: int = 0
+    a_bytes: int = 0
+    b_bytes: int = 0
+    nch: int = 0
+    win_px: int = 0
+    stage_bytes: int = 0
+    smem: int = 0
+    gx: int = 0
+    gy: int = 0
+    gz: int = 0
+
+    def meta(self) -> list[int]:
+        return [int(getattr(self, f.name)) for f in dataclasses.fields(self)]
+
+
+def conv5x3_plan(dtype, B: int, F: int, T: int, C: int, N: int,
+                 d: int) -> K1Plan:
+    """The route and cut of one K1 call (see ``K1Plan``)."""
+    route = conv5x3_route(dtype, C, N)
+    if route == K1_TILE:
+        return K1Plan(route, B, F, T, C, N, d)
+    TT, TF = _tile_rows(T, K1_POS, 8)
+    base = dict(route=route, B=B, F=F, T=T, C=C, N=N, d=d,
+                tt_log2=TT.bit_length() - 1, TT=TT, TF=TF, gx=-(-T // TT),
+                gy=-(-F // TF), gz=B)
+    if route == K1_NARROW_IN:
+        ng = -(-N // 32)
+        kp = -(-15 * C // 16) * 16 + 8
+        op = ng * 32 + 8
+        a_bytes, b_bytes = _r128(K1_POS * kp * 2), _r128(ng * 32 * kp * 2)
+        plan = K1Plan(**base, ng=ng, kp=kp, op=op, a_bytes=a_bytes,
+                      b_bytes=b_bytes, smem=a_bytes + b_bytes
+                      + K1_POS * op * 2)
+    else:
+        if F * T * C >= 2**31:
+            raise ValueError(f"conv5x3: {F}x{T}x{C} elements per item "
+                             f"exceed the narrow route's 32-bit offsets")
+        win_px = 5 * TF * (TT + 2)
+        assert win_px * 2 <= K1_OUT_UNITS * 256, win_px
+        stage = _r128((15 * 8 + win_px) * K1_PX * 2)
+        plan = K1Plan(**base, nch=-(-C // 16), win_px=win_px,
+                      stage_bytes=stage, smem=K1_RING * stage)
+    if plan.smem > MAX_SMEM:
+        raise ValueError(f"conv5x3: C={C} N={N} needs {plan.smem} bytes of "
+                         f"shared memory on its narrow route")
+    return plan
+
+
+# (dtype, shape, d) -> (plan, its meta as a C int array)
+_K1_PLANS: dict = {}
+
+
+def launch_conv5x3(x: torch.Tensor, w: torch.Tensor, d: int,
+                   transposed: bool = False) -> torch.Tensor:
+    """K1 on the card: x (B,F,T,C), w (5,3,C,N) of x's dtype -> (B,F,T,N).
+    With ``transposed`` w is (5,3,N,C), a forward kernel, and the conv runs
+    with it flipped and io-swapped (a conv's input gradient); the layout
+    each route reads is formed from w in one copy.  The route is
+    ``conv5x3_route``'s."""
     if x.dtype not in _DTYPES:
         raise ValueError(f"conv5x3: unsupported dtype {x.dtype}")
     _check(x, "conv5x3 x")
     B, F, T, C = x.shape
-    if w.dim() != 4 or tuple(w.shape[:3]) != (5, 3, C):
-        raise ValueError(f"conv5x3: w must be (5,3,{C},N), got {tuple(w.shape)}")
+    io = 3 if transposed else 2
+    if w.dim() != 4 or tuple(w.shape[:2]) != (5, 3) or w.shape[io] != C:
+        raise ValueError(f"conv5x3: w must be (5,3,{C},N) or, transposed, "
+                         f"(5,3,N,{C}), got {tuple(w.shape)}")
     _check(w, "conv5x3 w", x.dtype)
-    N = w.shape[3]
+    N = w.shape[5 - io]
+    key = (x.dtype, B, F, T, C, N, int(d))
+    if key not in _K1_PLANS:
+        plan = conv5x3_plan(x.dtype, B, F, T, C, N, int(d))
+        meta = plan.meta()
+        _K1_PLANS[key] = (plan, (ctypes.c_int * len(meta))(*meta), len(meta))
+    plan, meta, n_meta = _K1_PLANS[key]
     y = torch.empty((B, F, T, N), dtype=x.dtype, device=x.device)
     fn = _entry("conv5x3")
-    wt = tap_major(w)
+    # the tap-major copy only where a route reads it (narrow out and the
+    # tensor-core tile), the HWIO kernel where the others do; of a
+    # transposed kernel, tap-major is w flipped
+    tc_tile = (plan.route == K1_TILE and x.dtype == torch.bfloat16
+               and T >= 16 and C >= 16)
+    if plan.route == K1_NARROW_OUT or tc_tile:
+        wt = (w.flip(0, 1).reshape(15, N, C) if transposed
+              else tap_major(w))
+    else:
+        if transposed:
+            w = w.flip(0, 1).transpose(2, 3).contiguous()
+        wt = w
     rc = fn(x.data_ptr(), w.data_ptr(), wt.data_ptr(), y.data_ptr(), B, F, T,
-            C, N, int(d), _DTYPES[x.dtype], _stream(x))
+            C, N, int(d), _DTYPES[x.dtype], meta, n_meta, _stream(x))
     _status("conv5x3", rc)
     LAUNCHES["conv5x3"] += 1
     return y
@@ -226,10 +367,105 @@ def launch_fused_stage(x, a, s, w, d: int, want_conv: bool = False):
     return y, mom, c
 
 
-def launch_fused_stage_bwd(g_y, g_mom, y, x, c, a, s, w_t, d: int):
-    """K2's backward on the card: the conv transpose of one stage (w_t is
-    the flipped, io-swapped kernel) with the vjp's elementwise chain fused
-    around it.  Returns (dx, ds, da)."""
+# ------------------------------------ K2's backward: routes and cuts
+
+# routes of babe_fused_stage_bwd: the kBwd tile (conv5x3_tile.cuh,
+# conv5x3_mma.cuh) or the sm_90a engine (stage_mma_sm90.cuh), and the
+# engine's constants
+STAGE_TILE, STAGE_ENGINE = 0, 1
+STAGE_KC = 16          # input channels per ring stage
+STAGE_PX = 24          # bf16 per staged window pixel (16 + pad)
+STAGE_RING = 5         # the cp.async ring
+STAGE_POS = 128        # positions per block: two warpgroups of 64
+STAGE_UNITS = 2        # 16-byte window units per thread (256 threads)
+
+
+def stage_bwd_route(dtype, B: int, F: int, T: int, C: int, d: int) -> int:
+    """The engine for bf16 at C a multiple of 32 in 64..256 with rows of at
+    least 16 positions (every flagship stage, at any batch); else the
+    kBwd tile."""
+    if (dtype == torch.bfloat16 and C % 32 == 0 and 64 <= C <= 256
+            and T >= 16):
+        return STAGE_ENGINE
+    return STAGE_TILE
+
+
+@dataclasses.dataclass(frozen=True)
+class StagePlan:
+    """The cut of one K2 backward, passed to the kernel as its StagePlan
+    struct: these fields, all ints, in this order.  Engine: block (gx, gy,
+    b) owns the 128 positions f0 + q // TT, t0 + q % TT (q < 128, f0 = gy *
+    TF, t0 = gx * TT) and all C output channels; warpgroup w owns q in
+    [64w, 64w + 64), TF / 2 rows of F each when T < 64.  Ring stage it is
+    channel chunk it // 5 (16 channels) at kernel row kf = it % 5: the
+    window of rows f0 + fr + (kf-2) d (fr < TF) and columns t0 - 1 .. t0 +
+    TT, and the 3 kt taps' weights."""
+    route: int
+    B: int
+    F: int
+    T: int
+    C: int
+    d: int
+    tt_log2: int = 0
+    TT: int = 0
+    TF: int = 0
+    n_it: int = 0
+    ring_bytes: int = 0
+    stage_bytes: int = 0
+    win_bytes: int = 0
+    smem: int = 0
+    gx: int = 0
+    gy: int = 0
+    gz: int = 0
+
+    def meta(self) -> list[int]:
+        return [int(getattr(self, f.name)) for f in dataclasses.fields(self)]
+
+
+def stage_bwd_plan(dtype, B: int, F: int, T: int, C: int,
+                   d: int) -> StagePlan:
+    """The route and cut of one K2 backward (see ``StagePlan``)."""
+    route = stage_bwd_route(dtype, B, F, T, C, d)
+    if route == STAGE_TILE:
+        return StagePlan(route, B, F, T, C, d)
+    TT, TF = _tile_rows(T, STAGE_POS, 16)
+    assert TF * (TT + 2) * 2 <= STAGE_UNITS * 256
+    win = _r128(TF * (TT + 2) * STAGE_PX * 2)
+    stage = _r128(3 * C * STAGE_KC * 2 + win)
+    ring = max(STAGE_RING * stage, _r128(STAGE_POS * (C + 8) * 2))
+    plan = StagePlan(route, B, F, T, C, d, TT.bit_length() - 1, TT, TF,
+                     5 * C // STAGE_KC, ring, stage, win, ring + 5 * C * 4,
+                     -(-T // TT), -(-F // TF), B)
+    if plan.smem > MAX_SMEM:
+        raise ValueError(f"fused_stage_bwd: C={C} needs {plan.smem} bytes "
+                         f"of shared memory")
+    return plan
+
+
+def stage_bwd_weights(w: torch.Tensor) -> torch.Tensor:
+    """The engine's weights from the stage's forward kernel w (5,3,C,C),
+    in one permute: (kf, chunk, kt, C/8, 2, 8, 8), element [kf, ch, kt, g,
+    h, r, e] = w[kf, kt, 8g + r, 16ch + 8h + e].  Per (kf, chunk) the 3 taps
+    lie in the no-swizzle K-major layout of a wgmma B operand (output
+    channel n = 8g + r, contraction channel k = 16ch + 8h + e); the kernel
+    reads kernel row 4-kf and tap 2-kt of it, the transpose's flip."""
+    C = w.shape[2]
+    return w.reshape(5, 3, C // 8, 8, C // 16, 2, 8).permute(
+        0, 4, 1, 2, 5, 3, 6).contiguous()
+
+
+# (dtype, shape, d) -> (plan, its meta as a C int array)
+_STAGE_PLANS: dict = {}
+
+
+def launch_fused_stage_bwd(g_y, g_mom, y, x, c, a, s, w, d: int, gc=None):
+    """K2's backward on the card: the conv transpose of one stage (w is the
+    stage's forward kernel (5,3,C,C); the route forms what it reads from it)
+    with the vjp's elementwise chain fused around it.  Returns (dx, ds,
+    da).  The route is ``stage_bwd_route``'s.  The engine reads the
+    transpose's input g_pre * s: ``gc``, the second output of
+    ``launch_stage_dw_operands`` on the same tensors, else that pass is
+    launched here first."""
     if x.dtype not in _DTYPES:
         raise ValueError(f"fused_stage_bwd: unsupported dtype {x.dtype}")
     B, F, T, C = x.shape
@@ -238,15 +474,31 @@ def launch_fused_stage_bwd(g_y, g_mom, y, x, c, a, s, w_t, d: int):
     _check(g_mom, "fused_stage_bwd g_mom", torch.float32, (2, B, C))
     _check(a, "fused_stage_bwd a", torch.float32, (B, C))
     _check(s, "fused_stage_bwd s", torch.float32, (B, C))
-    _check(w_t, "fused_stage_bwd w_t", x.dtype, (5, 3, C, C))
+    _check(w, "fused_stage_bwd w", x.dtype, (5, 3, C, C))
+    key = (x.dtype, B, F, T, C, int(d))
+    if key not in _STAGE_PLANS:
+        plan = stage_bwd_plan(x.dtype, B, F, T, C, int(d))
+        meta = plan.meta()
+        _STAGE_PLANS[key] = (plan, (ctypes.c_int * len(meta))(*meta),
+                             len(meta))
+    plan, meta, n_meta = _STAGE_PLANS[key]
+    if plan.route == STAGE_ENGINE:
+        if gc is None:
+            _, gc = launch_stage_dw_operands(x, a, s, y, g_y, g_mom)
+        _check(gc, "fused_stage_bwd gc", x.dtype, (B, F, T, C))
+        wpk = w_t = w_tt = stage_bwd_weights(w)
+    else:
+        gc = wpk = w_t = w.flip(0, 1).transpose(2, 3).contiguous()
+        tc_tile = x.dtype == torch.bfloat16 and T >= 16 and C >= 16
+        w_tt = tap_major(w_t) if tc_tile else w_t
     dx = torch.empty_like(x)
     dsda = torch.zeros((2, B, C), dtype=torch.float32, device=x.device)
     fn = _entry("fused_stage_bwd")
-    w_tt = tap_major(w_t)
     rc = fn(g_y.data_ptr(), g_mom.data_ptr(), y.data_ptr(), x.data_ptr(),
             c.data_ptr(), a.data_ptr(), s.data_ptr(), w_t.data_ptr(),
-            w_tt.data_ptr(), dx.data_ptr(), dsda.data_ptr(), B, F, T, C,
-            int(d), _DTYPES[x.dtype], _stream(x))
+            w_tt.data_ptr(), wpk.data_ptr(), gc.data_ptr(), dx.data_ptr(),
+            dsda.data_ptr(), B, F, T, C, int(d), _DTYPES[x.dtype], meta,
+            n_meta, _stream(x))
     _status("fused_stage_bwd", rc)
     LAUNCHES["fused_stage_bwd"] += 1
     return dx, dsda[0], dsda[1]
@@ -402,7 +654,7 @@ DW_CHUNK = 128         # positions per chunk (tensor-core and simt routes)
 DW_MAX_WARPS = 9
 DW_SIMT_TILE = 64
 DW_FOLD_ROWS, DW_FOLD_WIDE, DW_FOLD_LANES, DW_FOLD_CHUNK = 32, 64, 4, 64
-DW_MAX_SMEM = 232448
+DW_MAX_SMEM = MAX_SMEM
 _SMS = 132             # the H100's SMs: one block each unless told more
 
 
@@ -658,11 +910,14 @@ def launch_stage_dw_operands(x, a, s, y, g_y, g_mom):
     return h, gc
 
 
-def launch_fused_stage_dw(x, a, s, y, g_y, g_mom, d: int) -> torch.Tensor:
+def launch_fused_stage_dw(x, a, s, y, g_y, g_mom, d: int,
+                          operands=None) -> torch.Tensor:
     """The weight gradient of one K2 stage on the card, in two launches:
     ``stage_dw_operands`` forms the conv input gelu(x*a) and the conv
     output's cotangent g_pre*s from the stage's input x, output y and the
-    cotangents g_y, g_mom into scratch, then the weight-gradient GEMM (see
-    ``ops/conv_kernels.dil_stage_dw_ref``).  Returns dW (5,3,C,C) fp32."""
-    h, gc = launch_stage_dw_operands(x, a, s, y, g_y, g_mom)
+    cotangents g_y, g_mom into scratch (unless ``operands``, that pass's
+    (h, gc) on the same tensors, are given), then the weight-gradient GEMM
+    (see ``ops/conv_kernels.dil_stage_dw_ref``).  Returns dW (5,3,C,C)
+    fp32."""
+    h, gc = operands or launch_stage_dw_operands(x, a, s, y, g_y, g_mom)
     return _dw_gemm("fused_stage_dw", h, gc, (5, 3), (int(d), 1))

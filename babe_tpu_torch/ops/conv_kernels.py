@@ -14,12 +14,15 @@ Counterpart of ``babe_tpu/ops/conv_kernels.py``.  Layout is channels-last
     tensors run ``dil_stage_ref``.  The backward returns dx, da and ds (the
     moments feed the next stage's group norm, so their cotangent is folded
     into y's and a, s carry gradient back to x through earlier moments):
-    on CUDA one launch of the same tile in its backward mode (the conv
-    transpose with the vjp's elementwise chain fused around it), on the
-    CPU ``dil_stage_bwd_ref``.  The weight's gradient is ``fused_stage_dw``
-    (``csrc/conv_dw.cu``; plain version ``dil_stage_dw_ref``): an operand
-    pass forms gelu(x*a) and the conv output's cotangent into scratch
-    (``stage_dw_operands_ref``), then ``conv_dw``'s GEMM reduces them.
+    on CUDA one launch of the conv transpose with the vjp's elementwise
+    chain fused around it (in bf16 the sm_90a engine, else the tile's
+    backward mode; the launcher forms the layout its route reads from w),
+    on the CPU ``dil_stage_bwd_ref``.  The weight's gradient is
+    ``fused_stage_dw`` (``csrc/conv_dw.cu``; plain version
+    ``dil_stage_dw_ref``): an operand pass forms gelu(x*a) and the conv
+    output's cotangent into scratch (``stage_dw_operands_ref``), then
+    ``conv_dw``'s GEMM reduces them; on CUDA that pass also forms the
+    engine's input, once for both.
   * ``fused_stage_int8`` (K3): the same stage with the conv in int8:
     q = int8(gelu6(x*a) * 127/bound), acc = conv5x3_d(q, qw) in int32,
     y = x/sqrt2 + acc*post in fp32, moments [sum y, sum y^2, max |y|] of
@@ -174,10 +177,14 @@ def _flip_io(w: torch.Tensor) -> torch.Tensor:
     return w.flip(0, 1).transpose(2, 3).contiguous()
 
 
-def _conv_any(x: torch.Tensor, w: torch.Tensor, d: int) -> torch.Tensor:
+def _conv_any(x: torch.Tensor, w: torch.Tensor, d: int,
+              transposed: bool = False) -> torch.Tensor:
+    """K1, or with ``transposed`` K1 with w flipped and io-swapped (the
+    input gradient of a conv with kernel w)."""
     if x.is_cuda:
-        return _k.launch_conv5x3(x.contiguous(), w.to(x.dtype).contiguous(), d)
-    return conv_ref(x, w, d)
+        return _k.launch_conv5x3(x.contiguous(), w.to(x.dtype).contiguous(), d,
+                                 transposed)
+    return conv_ref(x, _flip_io(w) if transposed else w, d)
 
 
 class _Conv5x3(torch.autograd.Function):
@@ -193,7 +200,7 @@ class _Conv5x3(torch.autograd.Function):
         g = g.to(w.dtype)
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = _conv_any(g, _flip_io(w), ctx.d)
+            dx = _conv_any(g, w, ctx.d, transposed=True)
         if ctx.needs_input_grad[1]:
             dw = _conv_dw_any(x, g, (5, 3), (ctx.d, 1)).to(w.dtype)
         return dx, dw, None
@@ -300,23 +307,23 @@ class _FusedStage(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_y, g_mom):
         x, a, s, w, y, c = ctx.saved_tensors
+        need_dw = ctx.needs_input_grad[3]
         if x.is_cuda:
+            args = (x.contiguous(), a.contiguous(), s.contiguous(), y,
+                    g_y.to(x.dtype).contiguous(), g_mom.float().contiguous())
+            # one operand pass serves dw (h, gc) and the engine (gc)
+            ops = _k.launch_stage_dw_operands(*args) if need_dw else None
             dx, ds, da = _k.launch_fused_stage_bwd(
-                g_y.to(x.dtype).contiguous(), g_mom.float().contiguous(),
-                y, x.contiguous(), c, a.contiguous(), s.contiguous(),
-                _flip_io(w), ctx.d)
+                args[4], args[5], y, args[0], c, args[1], args[2],
+                w.contiguous(), ctx.d, gc=None if ops is None else ops[1])
+            dw = (_k.launch_fused_stage_dw(*args, ctx.d, operands=ops)
+                  if need_dw else None)
         else:
             dx, da, ds = dil_stage_bwd_ref(x, a, s, w, y, c, g_y, g_mom,
                                            ctx.d)
-        dw = None
-        if ctx.needs_input_grad[3]:
-            if x.is_cuda:
-                dw = _k.launch_fused_stage_dw(
-                    x.contiguous(), a.contiguous(), s.contiguous(), y,
-                    g_y.to(x.dtype).contiguous(),
-                    g_mom.float().contiguous(), ctx.d)
-            else:
-                dw = dil_stage_dw_ref(x, a, s, y, g_y, g_mom, ctx.d)
+            dw = (dil_stage_dw_ref(x, a, s, y, g_y, g_mom, ctx.d)
+                  if need_dw else None)
+        if dw is not None:
             dw = dw.to(w.dtype)
         return dx, da, ds, dw, None
 
@@ -459,7 +466,7 @@ class _FusedStageInt8(torch.autograd.Function):
                                             want_conv=True)
             dx, ds, da = _k.launch_fused_stage_bwd(
                 g_y.to(x.dtype).contiguous(), g_mom.contiguous(), y, x, c,
-                a, s, _flip_io(w), d)
+                a, s, w.contiguous(), d)
         else:
             y, _, c = _dil_stage_parts(x, a, s, w, d)
             dx, da, ds = dil_stage_bwd_ref(x, a, s, w, y, c, g_y, g_mom, d)

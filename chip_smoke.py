@@ -14,12 +14,16 @@ Phases (any failure exits non-zero; no phase catches and carries on):
                 paths give it: K1 (conv5x3) at each pyramid conv and its
                 transpose, K2 (fused dilation stage, moments included) and
                 its backward kernel at each (C, d, F, T) stage of the
-                network on the full 184184-sample segment, K3 (the int8
-                stage) at each stage of at least 96 channels and one of 100
-                channels, with the share of int8 conv inputs that differ
-                from the plain version's; K4 (the general dilated conv) at
-                tests/test_pallas_conv.py's shapes with kernels (3,3),
-                (5,3), (7,3), (3,5) and dilations up to (4,1) and (2,2), and
+                network on the full 184184-sample segment, each line
+                naming the route the call took (a bf16 main-path shape
+                off K1's narrow routes or K2's backward engine fails),
+                then both at their edge shapes (K1_EDGE, STAGE_BWD_EDGE),
+                K3 (the int8 stage) at each stage of at least 96 channels
+                and one of 100 channels, with the share of int8 conv
+                inputs that differ from the plain version's; K4 (the
+                general dilated conv) at tests/test_pallas_conv.py's shapes
+                with kernels (3,3), (5,3), (7,3), (3,5) and dilations up to
+                (4,1) and (2,2), and
                 at the five level shapes of pallas_conv.py's table (batch
                 4), then through its entry point (forward and dx) at those
                 shapes with its launches counted; the weight gradients
@@ -171,7 +175,8 @@ TRAIN_PATH = ("conv5x3", "fused_stage", "fused_stage_bwd", "conv_dw",
               "stage_dw_operands", "fused_stage_dw")
 DW_KERNELS = ("conv_dw", "stage_dw_operands", "fused_stage_dw")
 # the kernels each request path must launch; the probe's run on its own path
-BF16_PATH = ("conv5x3", "fused_stage", "fused_stage_bwd", "filter_fit")
+BF16_PATH = ("conv5x3", "fused_stage", "fused_stage_bwd", "filter_fit",
+             "stage_dw_operands")
 INT8_PATH = BF16_PATH + ("fused_stage_int8",)
 PROBE_PATH = ("probe_gemm", "probe_stage")
 
@@ -304,6 +309,7 @@ def phase_kernels(results: dict):
                                            Ns, num_dils)
     g = torch.Generator(device=dev).manual_seed(0)
     g8 = torch.Generator(device=dev).manual_seed(8)  # K3's own stream
+    g9 = torch.Generator(device=dev).manual_seed(9)  # the edge shapes' own
     ok = True
     agg = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                   "library_ms": 0.0, "max_abs_err": 0.0, "flops": 0.0,
@@ -345,23 +351,34 @@ def phase_kernels(results: dict):
             x = torch.randn((1, F, T, C), generator=g, device=dev).to(dtype)
             w = (torch.randn((5, 3, C, N), generator=g, device=dev)
                  / math.sqrt(15 * C)).to(dtype)
-            if role != "pyramid fwd":  # a transposed-weight call
-                w = ck._flip_io(w.transpose(2, 3).contiguous())
-            y = kernels.launch_conv5x3(x, w, d)
+            # a transposed-weight call (an input gradient) runs as the
+            # main path runs it, from the forward kernel wf
+            tr = role != "pyramid fwd"
+            wf = w.transpose(2, 3).contiguous() if tr else w
+            if tr:
+                w = ck._flip_io(wf)
+            y = kernels.launch_conv5x3(x, wf, d, transposed=tr)
             ref = ck.conv_ref(x, w, d)
             torch.cuda.synchronize()
             e = errs(y, ref)
-            good = within(e, dn)
+            if tr:  # the kernel w given as is gives the same
+                e = max(e, errs(kernels.launch_conv5x3(x, w, d), ref))
+            route = K1_ROUTES[kernels.conv5x3_route(dtype, C, N)]
+            # the main path's bf16 shapes take the narrow routes
+            good = within(e, dn) and (dtype != torch.bfloat16 or count == 0
+                                      or route != "tile")
             ok &= good
-            t_k = cuda_time(lambda: kernels.launch_conv5x3(x, w, d))
+            t_k = cuda_time(lambda: kernels.launch_conv5x3(
+                x, wf, d, transposed=tr))
             t_p = cuda_time(lambda: ck.conv_ref(x, w, d), reps=2)
             t_l = cuda_time(library_conv(x, w, d))
             flops = 2.0 * F * T * C * N * 15
             nbytes = (F * T * (C + N) + 15 * C * N) * isz
             b, by = bound_ms(flops, nbytes, dtype)
-            log(f"K1 {dn:8s} {role:11s} F={F:3d} T={T:4d} C={C:3d} N={N:3d} "
-                f"d={d:2d} x{count:2d}: max_abs={e[0]:.3e} max_rel={e[1]:.2e}"
-                f" l2_rel={e[2]:.2e} {'ok' if good else 'FAIL'} | "
+            log(f"K1 {dn:8s} [{route}] {role:11s} F={F:3d} T={T:4d} "
+                f"C={C:3d} N={N:3d} d={d:2d} x{count:2d}: max_abs="
+                f"{e[0]:.3e} max_rel={e[1]:.2e} l2_rel={e[2]:.2e} "
+                f"{'ok' if good else 'FAIL'} | "
                 f"ms={t_k:.4f} bound={b:.4f}({by}) plain={t_p:.4f} "
                 f"cudnn={t_l:.4f}")
             account("conv5x3", count, dtype, t_k, t_p, t_l, flops, nbytes, e)
@@ -397,32 +414,23 @@ def phase_kernels(results: dict):
             account("fused_stage", count, dtype, t_k, t_p, t_l, flops,
                     nbytes, ey)
             # the stage's backward: cotangents of y and of the moments
-            gy = torch.randn((1, F, T, C), generator=g, device=dev).to(dtype)
-            gm = torch.randn((2, 1, C), generator=g, device=dev) / (F * T)
-            wt = ck._flip_io(w)
-            dx, ds, da = kernels.launch_fused_stage_bwd(gy, gm, y, x, c, a,
-                                                        s, wt, d)
-            rdx, rda, rds = ck.dil_stage_bwd_ref(x, a, s, w, y, c, gy, gm, d)
-            torch.cuda.synchronize()
-            edx, eda, eds = errs(dx, rdx), errs(da, rda), errs(ds, rds)
-            red_tol = 2e-3 if dtype == torch.bfloat16 else 1e-5
-            good = within(edx, dn) and eda[2] <= red_tol and (
-                eds[2] <= red_tol)
+            # the stage's backward: cotangents of y and of the moments;
+            # its time includes the engine's operand pass
+            good, line, edx, args = _stage_bwd_case(x, a, s, w, y, c, d, g,
+                                                    main_path=True)
             ok &= good
             t_k = cuda_time(lambda: kernels.launch_fused_stage_bwd(
-                gy, gm, y, x, c, a, s, wt, d))
+                *args, w, d))
             t_p = cuda_time(lambda: ck.dil_stage_bwd_ref(
-                x, a, s, w, y, c, gy, gm, d), reps=2)
-            t_l = cuda_time(library_conv(x, wt, d))
+                x, a, s, w, y, c, args[0], args[1], d), reps=2)
+            t_l = cuda_time(library_conv(x, ck._flip_io(w), d))
             nbytes = (5 * F * T * C + 15 * C * C) * isz + 6 * 4 * C
             b, by = bound_ms(flops, nbytes, dtype)
-            log(f"K2bwd {dn:8s} F={F:3d} T={T:4d} C={C:3d} d={d:2d} "
-                f"x{count}: dx max_abs={edx[0]:.3e} max_rel={edx[1]:.2e} "
-                f"l2_rel={edx[2]:.2e}; da l2_rel={eda[2]:.2e}; ds l2_rel="
-                f"{eds[2]:.2e} {'ok' if good else 'FAIL'} | ms={t_k:.4f} "
-                f"bound={b:.4f}({by}) plain={t_p:.4f} cudnn={t_l:.4f}")
+            log(f"{line} x{count} | ms={t_k:.4f} bound={b:.4f}({by}) "
+                f"plain={t_p:.4f} cudnn={t_l:.4f}")
             account("fused_stage_bwd", count, dtype, t_k, t_p, t_l, flops,
                     nbytes, edx)
+        ok &= _kernel_edges(dtype, g9)
         for (F, T, C, d), count in sorted(k3_shapes.items()):
             ok &= _kernel_int8_stage(F, T, C, d, count, dtype, g8, account,
                                      library_conv)
@@ -447,6 +455,95 @@ def phase_kernels(results: dict):
     if not ok:
         raise RuntimeError("a kernel disagrees with its plain version "
                            f"beyond the stated tolerance {TOL}")
+
+
+K1_ROUTES = ("tile", "narrow in", "narrow out")
+STAGE_ROUTES = ("tile", "engine")
+# K1's edge shapes (B, F, T, C, N, d) beside the pyramid convs (each of
+# which the main loop checks, C = 2 -> N and N -> 2): 3 input channels, 1
+# output channel, a ragged T at batch 2, T under 8, the widest narrow side
+K1_EDGE = [(1, 40, 20, 3, 64, 2), (1, 64, 70, 64, 1, 1),
+           (2, 48, 20, 2, 96, 4), (2, 48, 20, 96, 2, 4),
+           (1, 24, 5, 8, 256, 1), (1, 24, 5, 256, 8, 1)]
+# K2's backward's edge shapes (B, F, T, C, d): ragged T (20, 70), T = 8
+# (the tile), C = 96 and C = 100 (the tile), d = 64 on F = 384 and 448,
+# the largest and the deepest stage at batch 4
+STAGE_BWD_EDGE = [(1, 48, 20, 64, 1), (1, 64, 70, 128, 4), (1, 64, 8, 64, 2),
+                  (1, 64, 40, 96, 2), (1, 64, 40, 100, 2),
+                  (1, 384, 64, 256, 64), (1, 448, 32, 256, 64),
+                  (4, 64, 2048, 64, 1), (4, 448, 32, 256, 64)]
+
+
+def _stage_bwd_case(x, a, s, w, y, c, d, g, main_path=False):
+    """K2's backward at one stage against ``dil_stage_bwd_ref`` on the
+    same inputs, with seeded cotangents of y and of the moments: dx within
+    TOL, da and ds within red_tol (their fp32 atomics sum in another
+    order); on a main-path bf16 shape it must take the engine.  Returns
+    (good, log line, dx's errors, the launcher's leading arguments)."""
+    import torch
+
+    from babe_tpu_torch import kernels
+    from babe_tpu_torch.ops import conv_kernels as ck
+
+    B, F, T, C = x.shape
+    dtype, dev = x.dtype, x.device
+    dn = str(dtype).split(".")[-1]
+    gy = torch.randn((B, F, T, C), generator=g, device=dev).to(dtype)
+    gm = torch.randn((2, B, C), generator=g, device=dev) / (F * T)
+    args = (gy, gm, y, x, c, a, s)
+    dx, ds, da = kernels.launch_fused_stage_bwd(*args, w, d)
+    rdx, rda, rds = ck.dil_stage_bwd_ref(x, a, s, w, y, c, gy, gm, d)
+    torch.cuda.synchronize()
+    edx, eda, eds = errs(dx, rdx), errs(da, rda), errs(ds, rds)
+    red_tol = 2e-3 if dtype == torch.bfloat16 else 1e-5
+    route = STAGE_ROUTES[kernels.stage_bwd_route(dtype, B, F, T, C, d)]
+    good = (within(edx, dn) and eda[2] <= red_tol and eds[2] <= red_tol
+            and not (main_path and dtype == torch.bfloat16
+                     and route != "engine"))
+    return good, (f"K2bwd {dn:8s} [{route}] B={B} F={F:3d} T={T:4d} "
+                  f"C={C:3d} d={d:2d}: dx max_abs={edx[0]:.3e} max_rel="
+                  f"{edx[1]:.2e} l2_rel={edx[2]:.2e}; da l2_rel="
+                  f"{eda[2]:.2e}; ds l2_rel={eds[2]:.2e} "
+                  f"{'ok' if good else 'FAIL'}"), edx, args
+
+
+def _kernel_edges(dtype, g) -> bool:
+    """K1 at ``K1_EDGE`` and K2's backward at ``STAGE_BWD_EDGE`` against
+    their plain versions (the stage's y and conv output from its plain
+    forward), checked and logged with the route each took."""
+    import torch
+
+    from babe_tpu_torch import kernels
+    from babe_tpu_torch.ops import conv_kernels as ck
+
+    dev = torch.device("cuda")
+    dn = str(dtype).split(".")[-1]
+    ok = True
+    for B, F, T, C, N, d in K1_EDGE:
+        x = torch.randn((B, F, T, C), generator=g, device=dev).to(dtype)
+        w = (torch.randn((5, 3, C, N), generator=g, device=dev)
+             / math.sqrt(15 * C)).to(dtype)
+        y = kernels.launch_conv5x3(x, w, d)
+        ref = ck.conv_ref(x, w, d)
+        torch.cuda.synchronize()
+        e = errs(y, ref)
+        good = within(e, dn)
+        ok &= good
+        log(f"K1 {dn:8s} [{K1_ROUTES[kernels.conv5x3_route(dtype, C, N)]}]"
+            f" edge B={B} F={F:3d} T={T:4d} C={C:3d} N={N:3d} d={d:2d}: "
+            f"max_abs={e[0]:.3e} max_rel={e[1]:.2e} l2_rel={e[2]:.2e} "
+            f"{'ok' if good else 'FAIL'}")
+    for B, F, T, C, d in STAGE_BWD_EDGE:
+        x = torch.randn((B, F, T, C), generator=g, device=dev).to(dtype)
+        w = (torch.randn((5, 3, C, C), generator=g, device=dev)
+             / math.sqrt(15 * C)).to(dtype)
+        a = 0.5 + torch.rand((B, C), generator=g, device=dev)
+        s = torch.randn((B, C), generator=g, device=dev)
+        y, _, c = ck._dil_stage_parts(x, a, s, w, d)
+        good, line, _, _ = _stage_bwd_case(x, a, s, w, y, c, d, g)
+        ok &= good
+        log(f"{line} (edge)")
+    return ok
 
 
 def _library_conv(x, w, dil):
@@ -1268,7 +1365,8 @@ def phase_requests(results: dict, T: int = 35, n_blind: int = 2):
         del m
         torch.cuda.empty_cache()
     launches = results.setdefault("launches", {})
-    launches.update({k: results["launches_bf16"][k] for k in BF16_PATH})
+    launches.update({k: results["launches_bf16"][k] for k in BF16_PATH
+                     if k not in DW_KERNELS})
     launches["fused_stage_int8"] = results["launches_int8"][
         "fused_stage_int8"]
 
