@@ -58,21 +58,28 @@ template <> struct Elem<__nv_bfloat16> {
 
 // gelu with the degree-10 erf polynomial of the JAX package's _gelu_impl:
 // erf(z) ~ z * P(z^2) on the argument clamped to |z| <= 3.2; fp32 inside.
+// Every step is one rounded fp32 operation in the plain version's order
+// (__fmul_rn / __fadd_rn forbid FMA contraction; the constants are the
+// double literals rounded to float, as the plain version's scalars are),
+// so the result agrees with ops/conv_kernels._gelu_impl bit for bit: for
+// x below about -2 the sum 1 + erf cancels, and a contracted FMA there
+// moves the fp32 gelu by many ulps.
 __device__ __forceinline__ float gelu_poly(float x) {
-  float z = fminf(fmaxf(x * 0.7071067811865475f, -3.2f), 3.2f);
-  float v = z * z;
-  float p = 2.3633496703e-10f;
-  p = p * v + -1.4950546990e-08f;
-  p = p * v + 4.2725490474e-07f;
-  p = p * v + -7.3661495009e-06f;
-  p = p * v + 8.6683659408e-05f;
-  p = p * v + -7.4968982878e-04f;
-  p = p * v + 5.0087573199e-03f;
-  p = p * v + -2.6595735634e-02f;
-  p = p * v + 1.1265245796e-01f;
-  p = p * v + -3.7607088364e-01f;
-  p = p * v + 1.1283750399e+00f;
-  return 0.5f * x * (1.0f + z * p);
+  const float z = fminf(fmaxf(__fmul_rn(x, (float)0.7071067811865475),
+                              (float)-3.2), (float)3.2);
+  const float v = __fmul_rn(z, z);
+  float p = (float)2.3633496703e-10;
+  p = __fadd_rn(__fmul_rn(p, v), (float)-1.4950546990e-08);
+  p = __fadd_rn(__fmul_rn(p, v), (float)4.2725490474e-07);
+  p = __fadd_rn(__fmul_rn(p, v), (float)-7.3661495009e-06);
+  p = __fadd_rn(__fmul_rn(p, v), (float)8.6683659408e-05);
+  p = __fadd_rn(__fmul_rn(p, v), (float)-7.4968982878e-04);
+  p = __fadd_rn(__fmul_rn(p, v), (float)5.0087573199e-03);
+  p = __fadd_rn(__fmul_rn(p, v), (float)-2.6595735634e-02);
+  p = __fadd_rn(__fmul_rn(p, v), (float)1.1265245796e-01);
+  p = __fadd_rn(__fmul_rn(p, v), (float)-3.7607088364e-01);
+  p = __fadd_rn(__fmul_rn(p, v), (float)1.1283750399e+00);
+  return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.0f, __fmul_rn(z, p)));
 }
 
 // gelu'(x) = 0.5 (1 + erf(x/sqrt2)) + x phi(x), the same clamped erf
@@ -201,6 +208,15 @@ __global__ void __launch_bounds__(kThreads) conv5x3_tile(ConvParams p) {
     }
     __syncthreads();
 
+    // the chunk's 15 x kCK terms go into a fresh partial that is then
+    // added to the sum: two levels of short sums keep the fp32 error at
+    // the plain version's (per-tap sums of C terms); one running sum of
+    // 15*C terms has about 3x it
+    float part[8][4];
+#pragma unroll
+    for (int m = 0; m < 8; ++m)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) part[m][j] = 0.f;
 #pragma unroll
     for (int kf = 0; kf < 5; ++kf) {
 #pragma unroll
@@ -215,14 +231,18 @@ __global__ void __launch_bounds__(kThreads) conv5x3_tile(ConvParams p) {
               ws + ((kf * 3 + kt) * kCK + c) * kNN + tn * 4);
 #pragma unroll
           for (int m = 0; m < 8; ++m) {
-            acc[m][0] = fmaf(av[m + kt], bv.x, acc[m][0]);
-            acc[m][1] = fmaf(av[m + kt], bv.y, acc[m][1]);
-            acc[m][2] = fmaf(av[m + kt], bv.z, acc[m][2]);
-            acc[m][3] = fmaf(av[m + kt], bv.w, acc[m][3]);
+            part[m][0] = fmaf(av[m + kt], bv.x, part[m][0]);
+            part[m][1] = fmaf(av[m + kt], bv.y, part[m][1]);
+            part[m][2] = fmaf(av[m + kt], bv.z, part[m][2]);
+            part[m][3] = fmaf(av[m + kt], bv.w, part[m][3]);
           }
         }
       }
     }
+#pragma unroll
+    for (int m = 0; m < 8; ++m)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[m][j] += part[m][j];
     __syncthreads();
   }
 

@@ -16,28 +16,45 @@
 // carry over: this kernel reads and writes unpadded (B, F, T, C) tensors,
 // and its blocks run in any order.
 //
-// Design (the tile of conv5x3_mma.cuh, in int8):
-//   * Prologue.  While the 5 input rows at dilation d (and the T halo) of
-//     a 32-channel chunk are staged into shared memory, each value is
-//     quantized: x * a in fp32 (not rounded to x's type), the degree-6 erf
-//     gelu, * iv, round half to even, clip.  Every step is one rounded fp32
-//     operation (__fmul_rn / __fadd_rn forbid FMA contraction) in the plain
-//     version's order, so the int8 values agree with it bit for bit.  Taps
-//     outside F or T and channels past C stage as 0 (gelu(0) = 0).
-//   * Core.  mma.sync m16n8k32 s8 x s8 -> s32 over 15 taps x C/32 chunks;
-//     |acc| <= 15 * 256 * 127^2 < 2^31.
-//   * Epilogue.  y3 in fp32 in the plain version's order; y is stored in
-//     x's type, and the moments come from the fp32 y3: per block in shared
-//     memory, then one fp32 atomicAdd per sum and one atomicMax on the bits
-//     of the non-negative max per channel and block into a zeroed (3, B, C).
-//     Atomic order makes the sums' last bits vary from run to run.
+// Two routes, chosen and cut by the host (kernels.stage_int8_route,
+// stage_plan) and passed in as a StagePlan:
+//   * bf16 x at the engine's shapes (C a multiple of 32 in 96..256, T >=
+//     16: every int8 flagship stage at any batch): babe_stage_int8_operand
+//     quantizes q once per element (16 values per step: 32 bytes of x
+//     read, 16 bytes of q written), then the sm_90a engine of
+//     stage_mma_sm90.cuh (kModeI8) runs the int8 conv on q with wgmma
+//     m64nCk32 s8 x s8 -> s32 and the epilogue below through shared memory.
+//   * fp32 x and every other shape (C = 100 in the checks): the tile below.
+//
+// Prologue (the operand pass, and the tile's staging): x * a in fp32 (not
+// rounded to x's type), the degree-6 erf gelu, * iv, round half to even,
+// clip.  Every step is one rounded fp32 operation (__fmul_rn / __fadd_rn
+// forbid FMA contraction) in the plain version's order, so the int8
+// values agree with it bit for bit.  Taps outside F or T and channels past
+// C stage as 0 (gelu(0) = 0).
+//
+// The tile (conv5x3_mma.cuh's, in int8): while the 5 input rows at
+// dilation d (and the T halo) of a 32-channel chunk are staged into shared
+// memory, each value is quantized as above; mma.sync m16n8k32 s8 x s8 ->
+// s32 over 15 taps x C/32 chunks.  |acc| <= 15 * 256 * 127^2 < 2^31 on
+// either route.
+//
+// Epilogue (both routes): y3 in fp32 in the plain version's order; y is
+// stored in x's type, and the moments come from the fp32 y3: per block in
+// shared memory, then one fp32 atomicAdd per sum and one atomicMax on the
+// bits of the non-negative max per channel and block into a zeroed (3, B,
+// C).  Atomic order makes the sums' last bits vary from run to run.
 //
 // Bound on the H100: at the model's widths the int8 products (2*15*C
 // operations per output element at 1979 Tops/s) outweigh the bytes (x
-// read, y written, 2-4 bytes each), but this first version spends more
-// time in the prologue's fp32 gelu, which it recomputes for every staged
-// copy of an element (5 rows x C/64 channel tiles), than in the mma.
+// read, y written, 2-4 bytes each, and q written and read once).  The
+// tile recomputes the fp32 gelu for every staged copy of an element (5
+// rows x C/64 channel tiles), which cost it more than its mma; the
+// engine's operand pass computes it once.
+#include <algorithm>
+
 #include "mma_frag.cuh"
+#include "stage_mma_sm90.cuh"
 
 namespace babe {
 namespace k3 {
@@ -264,6 +281,30 @@ __global__ void __launch_bounds__(kThreads) stage_int8(Params p) {
   }
 }
 
+// q = clip(rint(gelu6(float(x) * a) * iv), +-127) of K3, 16 channels per
+// step
+__global__ void __launch_bounds__(256) stage_q(
+    const __nv_bfloat16* __restrict__ x, const float* __restrict__ a,
+    const float* __restrict__ iv, int8_t* __restrict__ q, int C,
+    size_t per_b, size_t n) {
+  for (size_t e = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 16;
+       e < n; e += (size_t)gridDim.x * blockDim.x * 16) {
+    const int b = (int)(e / per_b), c0 = (int)(e % C);
+    const float ivb = iv[b];
+    const float* ab = a + (size_t)b * C + c0;
+    __align__(16) __nv_bfloat16 xv[16];
+    __align__(16) int8_t qv[16];
+    *reinterpret_cast<uint4*>(xv) = *reinterpret_cast<const uint4*>(x + e);
+    *reinterpret_cast<uint4*>(xv + 8) =
+        *reinterpret_cast<const uint4*>(x + e + 8);
+#pragma unroll
+    for (int k = 0; k < 16; ++k)
+      qv[k] = (int8_t)quant(
+          gelu6(__fmul_rn(__bfloat162float(xv[k]), ab[k])), ivb);
+    *reinterpret_cast<uint4*>(q + e) = *reinterpret_cast<const uint4*>(qv);
+  }
+}
+
 template <typename T>
 int launch(Params p, cudaStream_t stream) {
   if (p.B <= 0 || p.F <= 0 || p.T <= 0 || p.C <= 0) return 0;
@@ -291,11 +332,48 @@ int launch(Params p, cudaStream_t stream) {
 }  // namespace k3
 }  // namespace babe
 
+// K3's engine input q, (B, F, T, C) int8 from bf16 x with C a multiple of
+// 16 (plain version ops/conv_kernels.stage_quant_ref)
+extern "C" int babe_stage_int8_operand(const void* x, const void* a,
+                                       const void* iv, void* q, int B, int F,
+                                       int T, int C, void* stream) {
+  if (C % 16 != 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || F <= 0 || T <= 0 || C <= 0) return 0;
+  const size_t per_b = (size_t)F * T * C, n = per_b * B;
+  const int blocks = (int)std::min<size_t>((n / 16 + 255) / 256, 132 * 16);
+  babe::k3::stage_q<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(a),
+      static_cast<const float*>(iv), static_cast<int8_t*>(q), C, per_b, n);
+  return (int)cudaGetLastError();
+}
+
+// route 1: the sm_90a engine (stage_mma_sm90.cuh) with the cut in meta (a
+// StagePlan), the packed int8 weights wpk and its input q
+// (babe_stage_int8_operand on x, a and iv; they are then read only through
+// q); route 0: the tile with wq tap-major, q_out (optional) receiving its
+// quantized input
 extern "C" int babe_fused_stage_int8(const void* x, const void* a,
                                      const void* iv, const void* post,
-                                     const void* wq, void* y, void* mom,
+                                     const void* wq, const void* wpk,
+                                     const void* q, void* y, void* mom,
                                      void* q_out, int B, int F, int T, int C,
-                                     int d, int dtype, void* stream) {
+                                     int d, int dtype, const int* meta,
+                                     int n_meta, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  babe::sm90::StagePlan plan;
+  if (!babe::sm90::read_plan(plan, meta, n_meta, B, F, T, C, d))
+    return (int)cudaErrorInvalidValue;
+  if (plan.route == 1) {
+    if (dtype != 1) return (int)cudaErrorInvalidValue;
+    babe::sm90::StageArgs g{};
+    g.src = q;
+    g.wpk = wpk;
+    g.x = static_cast<const __nv_bfloat16*>(x);
+    g.v0 = static_cast<const float*>(post);
+    g.out = static_cast<__nv_bfloat16*>(y);
+    g.sums = static_cast<float*>(mom);
+    return babe::sm90::launch_stage<babe::sm90::kModeI8>(plan, g, st);
+  }
   babe::k3::Params p{};
   p.x = x;
   p.wq = static_cast<const int8_t*>(wq);
@@ -310,7 +388,6 @@ extern "C" int babe_fused_stage_int8(const void* x, const void* a,
   p.T = T;
   p.C = C;
   p.d = d;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return babe::k3::launch<float>(p, st);
   if (dtype == 1) return babe::k3::launch<__nv_bfloat16>(p, st);
   return (int)cudaErrorInvalidValue;

@@ -6,11 +6,12 @@ library name carries a hash of the sources, so an edited kernel rebuilds and
 a stale build is never picked up.  ``build()`` starts one ``nvcc`` per source,
 all at once.
 
-Eleven kernels: ``conv5x3`` (K1, ``csrc/conv5x3.cu``), ``fused_stage``
-(K2) and ``fused_stage_bwd`` (K2's backward), both in
-``csrc/fused_stage.cu``, ``filter_fit`` (the blind sampler's filter fit,
-``csrc/filter_fit.cu``), ``fused_stage_int8`` (K3, the int8 stage,
-``csrc/fused_stage_int8.cu``), the int8 probe's ``probe_gemm`` (P1) and
+Thirteen kernels: ``conv5x3`` (K1, ``csrc/conv5x3.cu``), ``fused_stage``
+(K2), its operand pass ``stage_fwd_operand`` and ``fused_stage_bwd``
+(K2's backward), all in ``csrc/fused_stage.cu``, ``filter_fit`` (the
+blind sampler's filter fit, ``csrc/filter_fit.cu``), ``fused_stage_int8``
+(K3, the int8 stage) and its operand pass ``stage_int8_operand``, both in
+``csrc/fused_stage_int8.cu``, the int8 probe's ``probe_gemm`` (P1) and
 ``probe_stage`` (P2), both in ``csrc/probe_int8.cu``, ``dilated_conv``
 (K4, any odd kernel and both dilations, ``csrc/dilated_conv.cu``), and
 in ``csrc/conv_dw.cu`` the weight-gradient GEMM, counted as ``conv_dw``
@@ -19,11 +20,12 @@ operand pass ``stage_dw_operands``, which also forms the input of K2's
 backward engine).  Each call's route and cut is made here and passed to
 the kernel: the GEMM's tiles, chunks and splits by ``dw_plan``, K1's
 route (tiles, narrow in, narrow out) by ``conv5x3_route`` and
-``conv5x3_plan``, K2's backward's (the kBwd tile or the sm_90a engine) by
-``stage_bwd_route`` and ``stage_bwd_plan``.  The launchers
-here take tensors, check them, launch on PyTorch's current stream and
-raise when the launch status is not ``cudaSuccess``.  They count their
-launches in ``LAUNCHES``; nothing else touches the counts.
+``conv5x3_plan``, K2's, K2's backward's and K3's (a tile or the sm_90a
+stage engine, ``csrc/stage_mma_sm90.cuh``) by ``stage_fwd_route``,
+``stage_bwd_route``, ``stage_int8_route`` and ``stage_plan``.  The
+launchers here take tensors, check them, launch on PyTorch's current
+stream and raise when the launch status is not ``cudaSuccess``.  They
+count their launches in ``LAUNCHES``; nothing else touches the counts.
 """
 
 from __future__ import annotations
@@ -52,14 +54,20 @@ KERNELS = {
     "conv5x3": ("conv5x3", "babe_conv5x3", [_P] * 4 + [_I] * 7
                 + [_IP, _I, _P]),
     "fused_stage": ("fused_stage", "babe_fused_stage",
-                    [_P] * 8 + [_I] * 6 + [_P]),
+                    [_P] * 10 + [_I] * 6 + [_IP, _I, _P]),
+    # the engine's input h = gelu(x*a), formed once per element
+    "stage_fwd_operand": ("fused_stage", "babe_stage_fwd_operand",
+                          [_P] * 3 + [_I] * 4 + [_P]),
     "fused_stage_bwd": ("fused_stage", "babe_fused_stage_bwd",
                         [_P] * 13 + [_I] * 6 + [_IP, _I, _P]),
     "filter_fit": ("filter_fit", "babe_filter_fit",
                    [_P] * 5 + [_I] * 3 + [_F] * 4 + [_I] * 3 + [_F] * 4
                    + [_P]),
     "fused_stage_int8": ("fused_stage_int8", "babe_fused_stage_int8",
-                         [_P] * 8 + [_I] * 6 + [_P]),
+                         [_P] * 10 + [_I] * 6 + [_IP, _I, _P]),
+    # the engine's input q = int8(gelu6(x*a) * iv), formed once per element
+    "stage_int8_operand": ("fused_stage_int8", "babe_stage_int8_operand",
+                           [_P] * 4 + [_I] * 4 + [_P]),
     "probe_gemm": ("probe_int8", "babe_probe_gemm", [_P] * 3 + [_I] * 6
                    + [_P]),
     "probe_stage": ("probe_int8", "babe_probe_stage", [_P] * 3 + [_I] * 9
@@ -343,9 +351,30 @@ def launch_conv5x3(x: torch.Tensor, w: torch.Tensor, d: int,
     return y
 
 
+def launch_stage_fwd_operand(x: torch.Tensor, a: torch.Tensor
+                             ) -> torch.Tensor:
+    """The input of K2's engine on the card: h = gelu(x*a) (B,F,T,C) bf16,
+    rounded in K2's order, one pass with 16-byte loads and stores (plain
+    version ``ops/conv_kernels.stage_gelu_ref``).  C a multiple of 8."""
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"stage_fwd_operand: unsupported dtype {x.dtype}")
+    _check(x, "stage_fwd_operand x")
+    B, F, T, C = x.shape
+    if C % 8:
+        raise ValueError(f"stage_fwd_operand: C={C} is not a multiple of 8")
+    _check(a, "stage_fwd_operand a", torch.float32, (B, C))
+    h = torch.empty_like(x)
+    rc = _entry("stage_fwd_operand")(x.data_ptr(), a.data_ptr(),
+                                     h.data_ptr(), B, F, T, C, _stream(x))
+    _status("stage_fwd_operand", rc)
+    LAUNCHES["stage_fwd_operand"] += 1
+    return h
+
+
 def launch_fused_stage(x, a, s, w, d: int, want_conv: bool = False):
     """K2 on the card.  Returns (y, mom, c) with c the rounded conv output
-    when ``want_conv`` (else None)."""
+    when ``want_conv`` (else None).  The route is ``stage_fwd_route``'s:
+    on the engine, ``stage_fwd_operand`` forms its input first."""
     if x.dtype not in _DTYPES:
         raise ValueError(f"fused_stage: unsupported dtype {x.dtype}")
     _check(x, "fused_stage x")
@@ -353,59 +382,88 @@ def launch_fused_stage(x, a, s, w, d: int, want_conv: bool = False):
     _check(a, "fused_stage a", torch.float32, (B, C))
     _check(s, "fused_stage s", torch.float32, (B, C))
     _check(w, "fused_stage w", x.dtype, (5, 3, C, C))
+    plan, meta, n_meta = _stage_plan(STAGE_FWD, x.dtype, B, F, T, C, d)
+    if plan.route == STAGE_ENGINE:
+        h = launch_stage_fwd_operand(x, a)
+        wt = wpk = stage_fwd_weights(w)
+    else:
+        h = wt = wpk = tap_major(w)
     y = torch.empty_like(x)
     mom = torch.zeros((2, B, C), dtype=torch.float32, device=x.device)
     c = torch.empty_like(x) if want_conv else None
-    fn = _entry("fused_stage")
-    wt = tap_major(w)
-    rc = fn(x.data_ptr(), a.data_ptr(), s.data_ptr(), w.data_ptr(),
-            wt.data_ptr(), y.data_ptr(), mom.data_ptr(),
-            None if c is None else c.data_ptr(), B, F, T, C, int(d),
-            _DTYPES[x.dtype], _stream(x))
+    rc = _entry("fused_stage")(
+        x.data_ptr(), a.data_ptr(), s.data_ptr(), w.data_ptr(),
+        wt.data_ptr(), wpk.data_ptr(), h.data_ptr(), y.data_ptr(),
+        mom.data_ptr(), None if c is None else c.data_ptr(), B, F, T, C,
+        int(d), _DTYPES[x.dtype], meta, n_meta, _stream(x))
     _status("fused_stage", rc)
     LAUNCHES["fused_stage"] += 1
     return y, mom, c
 
 
-# ------------------------------------ K2's backward: routes and cuts
+# ---------------------------- the stage engine (K2, its backward, K3)
 
-# routes of babe_fused_stage_bwd: the kBwd tile (conv5x3_tile.cuh,
-# conv5x3_mma.cuh) or the sm_90a engine (stage_mma_sm90.cuh), and the
-# engine's constants
+# routes of babe_fused_stage, babe_fused_stage_bwd and babe_fused_stage_int8:
+# a tile (conv5x3_tile.cuh, conv5x3_mma.cuh; K3's own in
+# fused_stage_int8.cu) or the sm_90a engine (stage_mma_sm90.cuh); the
+# engine's modes and constants
 STAGE_TILE, STAGE_ENGINE = 0, 1
-STAGE_KC = 16          # input channels per ring stage
-STAGE_PX = 24          # bf16 per staged window pixel (16 + pad)
+STAGE_FWD, STAGE_BWD, STAGE_I8 = 0, 1, 2
+STAGE_KB = 32          # contraction bytes per ring stage (a k-step)
+STAGE_KC = 16          # bf16 channels per ring stage (int8: 32)
+STAGE_PX = 24          # bf16 per staged window pixel (16 + pad): 48 bytes
 STAGE_RING = 5         # the cp.async ring
 STAGE_POS = 128        # positions per block: two warpgroups of 64
 STAGE_UNITS = 2        # 16-byte window units per thread (256 threads)
+STAGE_MIN_C = {STAGE_FWD: 64, STAGE_BWD: 64, STAGE_I8: 96}
 
 
-def stage_bwd_route(dtype, B: int, F: int, T: int, C: int, d: int) -> int:
-    """The engine for bf16 at C a multiple of 32 in 64..256 with rows of at
-    least 16 positions (every flagship stage, at any batch); else the
-    kBwd tile."""
-    if (dtype == torch.bfloat16 and C % 32 == 0 and 64 <= C <= 256
-            and T >= 16):
+def stage_route(mode: int, dtype, B: int, F: int, T: int, C: int,
+                d: int) -> int:
+    """The engine for bf16 (K3: bf16 x) at C a multiple of 32 in 64..256
+    (K3: 96..256, the int8 stacks' channel floor) with rows of at least 16
+    positions: every flagship stage, at any batch.  Else the tile."""
+    if (dtype == torch.bfloat16 and C % 32 == 0
+            and STAGE_MIN_C[mode] <= C <= 256 and T >= 16):
         return STAGE_ENGINE
     return STAGE_TILE
 
 
+def stage_fwd_route(dtype, B: int, F: int, T: int, C: int, d: int) -> int:
+    """K2's route (see ``stage_route``)."""
+    return stage_route(STAGE_FWD, dtype, B, F, T, C, d)
+
+
+def stage_bwd_route(dtype, B: int, F: int, T: int, C: int, d: int) -> int:
+    """K2's backward's route (see ``stage_route``): the engine or the kBwd
+    tile."""
+    return stage_route(STAGE_BWD, dtype, B, F, T, C, d)
+
+
+def stage_int8_route(dtype, B: int, F: int, T: int, C: int, d: int) -> int:
+    """K3's route for x of ``dtype`` (see ``stage_route``)."""
+    return stage_route(STAGE_I8, dtype, B, F, T, C, d)
+
+
 @dataclasses.dataclass(frozen=True)
 class StagePlan:
-    """The cut of one K2 backward, passed to the kernel as its StagePlan
+    """The cut of one engine call, passed to the kernel as its StagePlan
     struct: these fields, all ints, in this order.  Engine: block (gx, gy,
-    b) owns the 128 positions f0 + q // TT, t0 + q % TT (q < 128, f0 = gy *
-    TF, t0 = gx * TT) and all C output channels; warpgroup w owns q in
-    [64w, 64w + 64), TF / 2 rows of F each when T < 64.  Ring stage it is
-    channel chunk it // 5 (16 channels) at kernel row kf = it % 5: the
-    window of rows f0 + fr + (kf-2) d (fr < TF) and columns t0 - 1 .. t0 +
-    TT, and the 3 kt taps' weights."""
+    z) with z = b * splits + j owns the 128 positions f0 + q // TT, t0 + q
+    % TT (q < 128, f0 = gy * TF, t0 = gx * TT) and output channels j * NT
+    .. (j + 1) * NT, NT = C / splits; warpgroup w owns q in [64w, 64w +
+    64), TF / 2 rows of F each when T < 64.  Ring stage it is channel chunk
+    it // 5 (32 bytes: 16 bf16 or 32 int8 channels) at kernel row kf = it %
+    5: the window of rows f0 + fr + (kf-2) d (fr < TF) and columns t0 - 1
+    .. t0 + TT, and the 3 kt taps' weights."""
     route: int
+    mode: int
     B: int
     F: int
     T: int
     C: int
     d: int
+    splits: int = 1
     tt_log2: int = 0
     TT: int = 0
     TF: int = 0
@@ -422,40 +480,93 @@ class StagePlan:
         return [int(getattr(self, f.name)) for f in dataclasses.fields(self)]
 
 
-def stage_bwd_plan(dtype, B: int, F: int, T: int, C: int,
-                   d: int) -> StagePlan:
-    """The route and cut of one K2 backward (see ``StagePlan``)."""
-    route = stage_bwd_route(dtype, B, F, T, C, d)
+def stage_splits(C: int) -> int:
+    """Channel tiles per position block: two of 128 at C = 256, one
+    elsewhere.  On an H100 two tiles were 8-15% faster per launch than one
+    of 256 at every C = 256 stage, batch 1 and 4, in all three modes: twice
+    the blocks for 132 SMs (the deepest stage has 112 blocks of 128
+    positions at batch 1), each with half the accumulators."""
+    return 2 if C == 256 else 1
+
+
+def stage_plan(mode: int, dtype, B: int, F: int, T: int, C: int,
+               d: int) -> StagePlan:
+    """The route and cut of one K2, K2 backward or K3 call (``mode``; see
+    ``StagePlan``)."""
+    route = stage_route(mode, dtype, B, F, T, C, d)
     if route == STAGE_TILE:
-        return StagePlan(route, B, F, T, C, d)
+        return StagePlan(route, mode, B, F, T, C, d)
+    splits = stage_splits(C)
+    NT = C // splits
+    assert NT * splits == C and NT % 32 == 0 and NT >= STAGE_MIN_C[mode], (
+        C, splits)
     TT, TF = _tile_rows(T, STAGE_POS, 16)
     assert TF * (TT + 2) * 2 <= STAGE_UNITS * 256
     win = _r128(TF * (TT + 2) * STAGE_PX * 2)
-    stage = _r128(3 * C * STAGE_KC * 2 + win)
-    ring = max(STAGE_RING * stage, _r128(STAGE_POS * (C + 8) * 2))
-    plan = StagePlan(route, B, F, T, C, d, TT.bit_length() - 1, TT, TF,
-                     5 * C // STAGE_KC, ring, stage, win, ring + 5 * C * 4,
-                     -(-T // TT), -(-F // TF), B)
+    stage = _r128(3 * NT * STAGE_KB + win)
+    # the epilogue tile: bf16 rows of NT + 8, K3's fp32 rows of NT + 4
+    tile = (STAGE_POS * (NT + 4) * 4 if mode == STAGE_I8
+            else STAGE_POS * (NT + 8) * 2)
+    ring = max(STAGE_RING * stage, _r128(tile))
+    kc = 2 * STAGE_KC if mode == STAGE_I8 else STAGE_KC
+    plan = StagePlan(route, mode, B, F, T, C, d, splits,
+                     TT.bit_length() - 1, TT, TF, 5 * C // kc, ring, stage,
+                     win, ring + 6 * NT * 4, -(-T // TT), -(-F // TF),
+                     B * splits)
     if plan.smem > MAX_SMEM:
-        raise ValueError(f"fused_stage_bwd: C={C} needs {plan.smem} bytes "
-                         f"of shared memory")
+        raise ValueError(f"stage engine: C={C} needs {plan.smem} bytes of "
+                         f"shared memory")
     return plan
 
 
+def stage_bwd_plan(dtype, B: int, F: int, T: int, C: int,
+                   d: int) -> StagePlan:
+    """The route and cut of one K2 backward (see ``StagePlan``)."""
+    return stage_plan(STAGE_BWD, dtype, B, F, T, C, d)
+
+
 def stage_bwd_weights(w: torch.Tensor) -> torch.Tensor:
-    """The engine's weights from the stage's forward kernel w (5,3,C,C),
-    in one permute: (kf, chunk, kt, C/8, 2, 8, 8), element [kf, ch, kt, g,
-    h, r, e] = w[kf, kt, 8g + r, 16ch + 8h + e].  Per (kf, chunk) the 3 taps
-    lie in the no-swizzle K-major layout of a wgmma B operand (output
-    channel n = 8g + r, contraction channel k = 16ch + 8h + e); the kernel
-    reads kernel row 4-kf and tap 2-kt of it, the transpose's flip."""
+    """The backward engine's weights from the stage's forward kernel w
+    (5,3,C,C), in one permute: (kf, chunk, kt, C/8, 2, 8, 8), element [kf,
+    ch, kt, g, h, r, e] = w[kf, kt, 8g + r, 16ch + 8h + e].  Per (kf,
+    chunk) the 3 taps lie in the no-swizzle K-major layout of a wgmma B
+    operand (output channel n = 8g + r, contraction channel k = 16ch + 8h +
+    e); the kernel reads kernel row 4-kf and tap 2-kt of it, the
+    transpose's flip."""
     C = w.shape[2]
     return w.reshape(5, 3, C // 8, 8, C // 16, 2, 8).permute(
         0, 4, 1, 2, 5, 3, 6).contiguous()
 
 
-# (dtype, shape, d) -> (plan, its meta as a C int array)
+def stage_fwd_weights(w: torch.Tensor) -> torch.Tensor:
+    """K2's engine weights from w (5,3,C,C): the backward's pack of the
+    io-swapped kernel, element [kf, ch, kt, g, h, r, e] = w[kf, kt, 16ch +
+    8h + e, 8g + r], read unflipped (B[k][n] = w[kf, kt, k, n])."""
+    return stage_bwd_weights(w.transpose(2, 3))
+
+
+def stage_int8_weights(qwt: torch.Tensor) -> torch.Tensor:
+    """K3's engine weights from its tap-major int8 kernel qwt (15,C,C), in
+    one permute: (kf, chunk, kt, C/8, 2, 8, 16), element [kf, ch, kt, g, h,
+    r, e] = qwt[3kf + kt, 8g + r, 32ch + 16h + e], the same no-swizzle
+    K-major bytes as the bf16 packs (16 int8 per core-matrix row)."""
+    C = qwt.shape[1]
+    return qwt.reshape(5, 3, C // 8, 8, C // 32, 2, 16).permute(
+        0, 4, 1, 2, 5, 3, 6).contiguous()
+
+
+# (mode, dtype, shape, d) -> (plan, its meta as a C int array, its length)
 _STAGE_PLANS: dict = {}
+
+
+def _stage_plan(mode: int, dtype, B: int, F: int, T: int, C: int, d: int):
+    key = (mode, dtype, B, F, T, C, int(d))
+    if key not in _STAGE_PLANS:
+        plan = stage_plan(mode, dtype, B, F, T, C, int(d))
+        meta = plan.meta()
+        _STAGE_PLANS[key] = (plan, (ctypes.c_int * len(meta))(*meta),
+                             len(meta))
+    return _STAGE_PLANS[key]
 
 
 def launch_fused_stage_bwd(g_y, g_mom, y, x, c, a, s, w, d: int, gc=None):
@@ -475,13 +586,7 @@ def launch_fused_stage_bwd(g_y, g_mom, y, x, c, a, s, w, d: int, gc=None):
     _check(a, "fused_stage_bwd a", torch.float32, (B, C))
     _check(s, "fused_stage_bwd s", torch.float32, (B, C))
     _check(w, "fused_stage_bwd w", x.dtype, (5, 3, C, C))
-    key = (x.dtype, B, F, T, C, int(d))
-    if key not in _STAGE_PLANS:
-        plan = stage_bwd_plan(x.dtype, B, F, T, C, int(d))
-        meta = plan.meta()
-        _STAGE_PLANS[key] = (plan, (ctypes.c_int * len(meta))(*meta),
-                             len(meta))
-    plan, meta, n_meta = _STAGE_PLANS[key]
+    plan, meta, n_meta = _stage_plan(STAGE_BWD, x.dtype, B, F, T, C, d)
     if plan.route == STAGE_ENGINE:
         if gc is None:
             _, gc = launch_stage_dw_operands(x, a, s, y, g_y, g_mom)
@@ -535,12 +640,38 @@ def launch_filter_fit(stats: torch.Tensor, freqs: torch.Tensor,
     return out
 
 
+def launch_stage_int8_operand(x: torch.Tensor, a: torch.Tensor,
+                              iv: torch.Tensor) -> torch.Tensor:
+    """The input of K3's engine on the card: q = clip(rint(gelu6(float(x)
+    * a) * iv), +-127) (B,F,T,C) int8 from bf16 x, every step one rounded
+    fp32 operation in the plain order (plain version
+    ``ops/conv_kernels.stage_quant_ref``).  C a multiple of 16."""
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"stage_int8_operand: unsupported dtype {x.dtype}")
+    _check(x, "stage_int8_operand x")
+    B, F, T, C = x.shape
+    if C % 16:
+        raise ValueError(f"stage_int8_operand: C={C} is not a multiple of "
+                         f"16")
+    _check(a, "stage_int8_operand a", torch.float32, (B, C))
+    _check(iv, "stage_int8_operand iv", torch.float32, (B,))
+    q = torch.empty((B, F, T, C), dtype=torch.int8, device=x.device)
+    rc = _entry("stage_int8_operand")(x.data_ptr(), a.data_ptr(),
+                                      iv.data_ptr(), q.data_ptr(), B, F, T,
+                                      C, _stream(x))
+    _status("stage_int8_operand", rc)
+    LAUNCHES["stage_int8_operand"] += 1
+    return q
+
+
 def launch_fused_stage_int8(x, a, iv, post, qwt, d: int,
                             want_q: bool = False):
     """K3 on the card: x (B,F,T,C) bf16 or fp32; a (B,C), iv (B,), post
     (B,C) fp32; qwt (15,C,C) int8 tap-major.  Returns (y in x's dtype,
     mom (3,B,C) fp32, q) with q the int8 conv input (B,F,T,C) when
-    ``want_q`` (a check's view of the prologue; else None)."""
+    ``want_q`` (a check's view of the prologue; else None).  The route is
+    ``stage_int8_route``'s: on the engine, ``stage_int8_operand`` forms q
+    first."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"fused_stage_int8: unsupported dtype {x.dtype}")
     _check(x, "fused_stage_int8 x")
@@ -549,18 +680,28 @@ def launch_fused_stage_int8(x, a, iv, post, qwt, d: int,
     _check(iv, "fused_stage_int8 iv", torch.float32, (B,))
     _check(post, "fused_stage_int8 post", torch.float32, (B, C))
     _check(qwt, "fused_stage_int8 qwt", torch.int8, (15, C, C))
+    plan, meta, n_meta = _stage_plan(STAGE_I8, x.dtype, B, F, T, C, d)
+    q_out = None
+    if plan.route == STAGE_ENGINE:
+        q = launch_stage_int8_operand(x, a, iv)
+        wpk = stage_int8_weights(qwt)
+    else:
+        q = wpk = qwt
+        if want_q:
+            q_out = torch.zeros((B, F, T, C), dtype=torch.int8,
+                                device=x.device)
     y = torch.empty_like(x)
     mom = torch.zeros((3, B, C), dtype=torch.float32, device=x.device)
-    q = (torch.zeros((B, F, T, C), dtype=torch.int8, device=x.device)
-         if want_q else None)
-    fn = _entry("fused_stage_int8")
-    rc = fn(x.data_ptr(), a.data_ptr(), iv.data_ptr(), post.data_ptr(),
-            qwt.data_ptr(), y.data_ptr(), mom.data_ptr(),
-            None if q is None else q.data_ptr(), B, F, T, C, int(d),
-            _DTYPES[x.dtype], _stream(x))
+    rc = _entry("fused_stage_int8")(
+        x.data_ptr(), a.data_ptr(), iv.data_ptr(), post.data_ptr(),
+        qwt.data_ptr(), wpk.data_ptr(), q.data_ptr(), y.data_ptr(),
+        mom.data_ptr(), None if q_out is None else q_out.data_ptr(), B, F,
+        T, C, int(d), _DTYPES[x.dtype], meta, n_meta, _stream(x))
     _status("fused_stage_int8", rc)
     LAUNCHES["fused_stage_int8"] += 1
-    return y, mom, q
+    if plan.route == STAGE_ENGINE:
+        return y, mom, (q if want_q else None)
+    return y, mom, q_out
 
 
 def launch_probe_gemm(a: torch.Tensor, bt: torch.Tensor,

@@ -10,8 +10,10 @@ Counterpart of ``babe_tpu/ops/conv_kernels.py``.  Layout is channels-last
     (``csrc/conv_dw.cu``; plain version ``conv_dw_ref``) for the weight.
   * ``fused_stage`` (K2): one ResnetBlock dilation stage
     h = gelu(x*a); y = (x + conv5x3_d(h, w)*s)/sqrt2; moments [sum y,
-    sum y^2] per (B, C).  CUDA tensors launch ``csrc/fused_stage.cu``; CPU
-    tensors run ``dil_stage_ref``.  The backward returns dx, da and ds (the
+    sum y^2] per (B, C).  CUDA tensors launch ``csrc/fused_stage.cu`` (in
+    bf16 an operand pass forming h, ``stage_gelu_ref``'s kernel, then the
+    sm_90a stage engine; else the tile); CPU tensors run
+    ``dil_stage_ref``.  The backward returns dx, da and ds (the
     moments feed the next stage's group norm, so their cotangent is folded
     into y's and a, s carry gradient back to x through earlier moments):
     on CUDA one launch of the conv transpose with the vjp's elementwise
@@ -26,8 +28,10 @@ Counterpart of ``babe_tpu/ops/conv_kernels.py``.  Layout is channels-last
   * ``fused_stage_int8`` (K3): the same stage with the conv in int8:
     q = int8(gelu6(x*a) * 127/bound), acc = conv5x3_d(q, qw) in int32,
     y = x/sqrt2 + acc*post in fp32, moments [sum y, sum y^2, max |y|] of
-    the fp32 y.  CUDA tensors launch ``csrc/fused_stage_int8.cu``; CPU
-    tensors run ``dil_stage_int8_ref``.  The backward is straight-through:
+    the fp32 y.  CUDA tensors launch ``csrc/fused_stage_int8.cu`` (for
+    bf16 x an operand pass forming q, ``stage_quant_ref``'s kernel, then
+    the stage engine in int8; else the tile); CPU tensors run
+    ``dil_stage_int8_ref``.  The backward is straight-through:
     the vjp of the exact stage (K2 recomputed, then K2's backward) at the
     int8 forward's inputs; the bound gets no gradient.  Its weight gradient
     is not ported (int8 training waits for the unfused int8 convs), so a
@@ -227,9 +231,15 @@ def _sqrt2(x: torch.Tensor) -> torch.Tensor:
     return torch.tensor(SQRT2, dtype=x.dtype, device=x.device)
 
 
+def stage_gelu_ref(x, a):
+    """The conv input of a K2 stage, h = gelu(x*a) in x's dtype (x*a
+    rounded first): the plain version of ``stage_fwd_operand``."""
+    return _gelu_impl(x * _bcast(a, x.dtype))
+
+
 def _dil_stage_parts(x, a, s, w, d):
     dt = x.dtype
-    h = _gelu_impl(x * _bcast(a, dt))
+    h = stage_gelu_ref(x, a)
     c = conv_ref(h, w.to(dt), d)
     y = (x + c * _bcast(s, dt)) / _sqrt2(x)
     y32 = y.float()
@@ -274,10 +284,8 @@ def stage_dw_operands_ref(x, a, s, y, g_y, g_mom):
     """Plain version of ``stage_dw_operands``: the operands of one K2
     stage's weight gradient, h = gelu(x*a) and the conv output's cotangent
     g_pre*s, each formed in x's dtype in the reference's order."""
-    dt = x.dtype
-    h = _gelu_impl(x * _bcast(a, dt))
-    gc = _stage_gpre(x, y, g_y, g_mom) * _bcast(s, dt)
-    return h, gc
+    gc = _stage_gpre(x, y, g_y, g_mom) * _bcast(s, x.dtype)
+    return stage_gelu_ref(x, a), gc
 
 
 def dil_stage_dw_ref(x, a, s, y, g_y, g_mom, d: int):
@@ -399,12 +407,18 @@ def _hwio(wt: torch.Tensor) -> torch.Tensor:
     return wt.reshape(5, 3, wt.shape[1], wt.shape[2]).permute(0, 1, 3, 2)
 
 
+def stage_quant_ref(x, a, iv):
+    """The int8 conv input of a K3 stage, q = int8(gelu6(float(x)*a) * iv):
+    the plain version of ``stage_int8_operand``."""
+    return quant_i8(_gelu_cheap_impl(x.float() * a[:, None, None, :]),
+                    iv[:, None, None, None])
+
+
 def _int8_stage_parts(x, a, iv, post, qw, d):
     """(y, mom, q): the plain int8 stage and its quantized conv input."""
     B, F, T, C = x.shape
     xf = x.float()
-    q = quant_i8(_gelu_cheap_impl(xf * a[:, None, None, :]),
-                 iv[:, None, None, None])
+    q = stage_quant_ref(x, a, iv)
     # int8 x int8 products summed in float64: exact at these magnitudes
     # (|acc| <= 15 * C * 127^2 < 2^53)
     qp = torch.nn.functional.pad(q.double(), (0, 0, 1, 1, 2 * d, 2 * d))

@@ -16,11 +16,19 @@ Phases (any failure exits non-zero; no phase catches and carries on):
                 its backward kernel at each (C, d, F, T) stage of the
                 network on the full 184184-sample segment, each line
                 naming the route the call took (a bf16 main-path shape
-                off K1's narrow routes or K2's backward engine fails),
-                then both at their edge shapes (K1_EDGE, STAGE_BWD_EDGE),
-                K3 (the int8 stage) at each stage of at least 96 channels
-                and one of 100 channels, with the share of int8 conv
-                inputs that differ from the plain version's; K4 (the
+                off K1's narrow routes or off the stage engine of K2 or
+                K2's backward fails; K2's engine lines also hold its
+                operand pass), then both at their edge shapes (K1_EDGE,
+                STAGE_BWD_EDGE), K3 (the int8 stage) at each stage of at
+                least 96 channels and one of 100 channels, with the share
+                of int8 conv inputs that differ from the plain version's
+                (a bf16 main-path shape off K3's engine fails); then K2
+                and K3 at their own edge shapes (STAGE_FWD_EDGE,
+                K3_EDGE) and K2 in fp32 at every stage shape over the
+                seeds K2_FP32_SEEDS (K2's fp32 conv output and y are held
+                to the plain version run in float64 on the same inputs,
+                within K2_FP32_RATIO of the plain fp32 version's own
+                error); K4 (the
                 general dilated conv) at tests/test_pallas_conv.py's shapes
                 with kernels (3,3), (5,3), (7,3), (3,5) and dilations up to
                 (4,1) and (2,2), and
@@ -105,6 +113,10 @@ REPLACES = {
     # no Pallas kernel: the lax.while_loop of fit_params (XLA on the TPU)
     "filter_fit": "babe_tpu/sampling/blind.py:157",
     "fused_stage_int8": "babe_tpu/ops/conv_kernels.py:1162",
+    # the prologues of K2 and K3 (gelu(x*a), and its int8 quantization),
+    # formed once per element for the stage engine
+    "stage_fwd_operand": "babe_tpu/ops/conv_kernels.py:809",
+    "stage_int8_operand": "babe_tpu/ops/conv_kernels.py:1162",
     "probe_gemm": "tools/probe_pallas_int8.py:50",
     "probe_stage": "tools/probe_pallas_int8.py:97",
     "dilated_conv": "babe_tpu/ops/pallas_conv.py:44",
@@ -122,6 +134,8 @@ SOURCES = {
     "fused_stage_bwd": "babe_tpu_torch/csrc/fused_stage.cu",
     "filter_fit": "babe_tpu_torch/csrc/filter_fit.cu",
     "fused_stage_int8": "babe_tpu_torch/csrc/fused_stage_int8.cu",
+    "stage_fwd_operand": "babe_tpu_torch/csrc/fused_stage.cu",
+    "stage_int8_operand": "babe_tpu_torch/csrc/fused_stage_int8.cu",
     "probe_gemm": "babe_tpu_torch/csrc/probe_int8.cu",
     "probe_stage": "babe_tpu_torch/csrc/probe_int8.cu",
     "dilated_conv": "babe_tpu_torch/csrc/dilated_conv.cu",
@@ -132,8 +146,19 @@ SOURCES = {
 # what each kernel's ms, plain_ms, bound_ms and library_ms sum over
 PER = {
     "filter_fit": "one guided evaluation of a blind request, fp32",
+    "fused_stage": "one guided evaluation, bf16, main-path shapes, its "
+                   "operand pass included; library_ms is a cuDNN conv (the "
+                   "conv alone)",
+    "stage_fwd_operand": "one guided evaluation, bf16, main-path shapes: "
+                         "the 75 stages' operand passes (also inside "
+                         "fused_stage's ms); no PyTorch call computes them",
+    "stage_int8_operand": "one guided evaluation of an int8 request, bf16 "
+                          "carrier, main-path shapes: the 68 stages' "
+                          "operand passes (also inside fused_stage_int8's "
+                          "ms); no PyTorch call computes them",
     "fused_stage_int8": "one guided evaluation of an int8 request, bf16 "
-                        "carrier, main-path shapes; library_ms is a bf16 "
+                        "carrier, main-path shapes, its operand pass "
+                        "included; library_ms is a bf16 "
                         "cuDNN conv (no PyTorch call computes an int8 conv)",
     "probe_gemm": "one product at each of 2 shapes x (bf16, int8), timed "
                   "over launches of 16 repetitions; library_ms is cuBLAS "
@@ -161,6 +186,7 @@ PER = {
 LAUNCHES_FROM = {
     "probe_gemm": "the probe run", "probe_stage": "the probe run",
     "fused_stage_int8": "the int8 requests",
+    "stage_int8_operand": "the int8 requests",
     "dilated_conv": "the K4 entry-point run of the kernels phase",
     "conv_dw": "the train phase (all its steps)",
     "stage_dw_operands": "the train phase (all its steps)",
@@ -171,13 +197,14 @@ LAUNCHES_FROM = {
 # dtypes give fp32 dW, held at these bars
 DW_TOL = {"max_rel": 1e-4, "l2_rel": 5e-5}
 # the kernels the train phase must launch, each an exact count per step
-TRAIN_PATH = ("conv5x3", "fused_stage", "fused_stage_bwd", "conv_dw",
-              "stage_dw_operands", "fused_stage_dw")
+TRAIN_PATH = ("conv5x3", "fused_stage", "stage_fwd_operand",
+              "fused_stage_bwd", "conv_dw", "stage_dw_operands",
+              "fused_stage_dw")
 DW_KERNELS = ("conv_dw", "stage_dw_operands", "fused_stage_dw")
 # the kernels each request path must launch; the probe's run on its own path
-BF16_PATH = ("conv5x3", "fused_stage", "fused_stage_bwd", "filter_fit",
-             "stage_dw_operands")
-INT8_PATH = BF16_PATH + ("fused_stage_int8",)
+BF16_PATH = ("conv5x3", "fused_stage", "stage_fwd_operand",
+             "fused_stage_bwd", "filter_fit", "stage_dw_operands")
+INT8_PATH = BF16_PATH + ("fused_stage_int8", "stage_int8_operand")
 PROBE_PATH = ("probe_gemm", "probe_stage")
 
 
@@ -290,7 +317,10 @@ def phase_identify(kernels):
         f"{ {k: round(v, 1) for k, v in kernels.BUILD_SECONDS.items()} })")
     for name, text in kernels.BUILD_LOG.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            # the stage engine's and operand passes' entries name the
+            # register and spill lines that follow them
+            if ("registers" in line or "spill" in line or "C7513" in line
+                    or ("Compiling entry" in line and "stage_" in line)):
                 log(f"  ptxas[{name}]: {line.strip()}")
 
 
@@ -388,14 +418,8 @@ def phase_kernels(results: dict):
                  / math.sqrt(15 * C)).to(dtype)
             a = 0.5 + torch.rand((1, C), generator=g, device=dev)
             s = torch.randn((1, C), generator=g, device=dev)
-            y, mom, c = kernels.launch_fused_stage(x, a, s, w, d,
-                                                   want_conv=True)
-            ry, rmom, rc = ck._dil_stage_parts(x, a, s, w, d)
-            torch.cuda.synchronize()
-            ey, ec = errs(y, ry), errs(c, rc)
-            em = errs(mom, rmom)
-            good = within(ey, dn) and within(ec, dn) and em[2] <= (
-                1e-3 if dtype == torch.bfloat16 else 1e-5)
+            good, line, (ey, eh), y, c = _stage_fwd_case(
+                x, a, s, w, d, main_path=True)
             ok &= good
             t_k = cuda_time(lambda: kernels.launch_fused_stage(
                 x, a, s, w, d, want_conv=True))
@@ -405,15 +429,25 @@ def phase_kernels(results: dict):
             flops = 2.0 * F * T * C * C * 15
             nbytes = (3 * F * T * C + 15 * C * C) * isz + 4 * 4 * C
             b, by = bound_ms(flops, nbytes, dtype)
-            log(f"K2 {dn:8s} F={F:3d} T={T:4d} C={C:3d} d={d:2d} x{count}: "
-                f"y max_abs={ey[0]:.3e} max_rel={ey[1]:.2e} "
-                f"l2_rel={ey[2]:.2e}; conv l2_rel={ec[2]:.2e}; "
-                f"mom l2_rel={em[2]:.2e} {'ok' if good else 'FAIL'} | "
-                f"ms={t_k:.4f} bound={b:.4f}({by}) plain={t_p:.4f} "
-                f"cudnn={t_l:.4f}")
+            line += (f" x{count} | ms={t_k:.4f} bound={b:.4f}({by}) "
+                     f"plain={t_p:.4f} cudnn={t_l:.4f}")
+            if kernels.stage_fwd_route(dtype, 1, F, T, C, d) == (
+                    kernels.STAGE_ENGINE):
+                # the engine's operand pass alone: x read, h written, about
+                # 30 fp32 operations per element (the gelu polynomial and
+                # the roundings)
+                t_o = cuda_time(lambda: kernels.launch_stage_fwd_operand(
+                    x, a))
+                t_op = cuda_time(lambda: ck.stage_gelu_ref(x, a), reps=2)
+                o_flops, o_bytes = 30.0 * F * T * C, 2 * F * T * C * isz
+                bo, byo = bound_ms(o_flops, o_bytes, torch.float32)
+                line += (f"; operand pass ms={t_o:.4f} bound={bo:.4f}"
+                         f"({byo}) plain={t_op:.4f}")
+                account("stage_fwd_operand", count, dtype, t_o, t_op, 0.0,
+                        o_flops, o_bytes, eh, op_dtype=torch.float32)
+            log(line)
             account("fused_stage", count, dtype, t_k, t_p, t_l, flops,
                     nbytes, ey)
-            # the stage's backward: cotangents of y and of the moments
             # the stage's backward: cotangents of y and of the moments;
             # its time includes the engine's operand pass
             good, line, edx, args = _stage_bwd_case(x, a, s, w, y, c, d, g,
@@ -432,12 +466,18 @@ def phase_kernels(results: dict):
                     nbytes, edx)
         ok &= _kernel_edges(dtype, g9)
         for (F, T, C, d), count in sorted(k3_shapes.items()):
-            ok &= _kernel_int8_stage(F, T, C, d, count, dtype, g8, account,
-                                     library_conv)
+            ok &= _kernel_int8_stage(1, F, T, C, d, count, dtype, g8,
+                                     account, library_conv)
+    # drawn after every earlier edge check, so those keep their inputs
+    for dtype in (torch.bfloat16, torch.float32):
+        ok &= _stage_fwd_edges(dtype, g9)
+    ok &= _k2_fp32_evidence(k2_shapes)
     ok &= _kernel_filter_fit(agg["filter_fit"])
     ok &= _kernel_k4(account, results)
     ok &= _kernel_dw(account, k1_shapes, k2_shapes)
-    agg["stage_dw_operands"]["library_ms"] = None
+    for name in ("stage_dw_operands", "stage_fwd_operand",
+                 "stage_int8_operand"):
+        agg[name]["library_ms"] = None
     for name, a in agg.items():
         if name == "filter_fit":
             continue  # logged by _kernel_filter_fit
@@ -472,6 +512,56 @@ STAGE_BWD_EDGE = [(1, 48, 20, 64, 1), (1, 64, 70, 128, 4), (1, 64, 8, 64, 2),
                   (1, 64, 40, 96, 2), (1, 64, 40, 100, 2),
                   (1, 384, 64, 256, 64), (1, 448, 32, 256, 64),
                   (4, 64, 2048, 64, 1), (4, 448, 32, 256, 64)]
+
+
+def _stage_fwd_case(x, a, s, w, d, main_path=False):
+    """K2 at one stage against ``_dil_stage_parts`` on the same inputs: y
+    and the conv output within TOL (in fp32 TOL's max_rel, and in place of
+    its l2_rel each within K2_FP32_RATIO times the plain fp32 version's own
+    relative L2 error against the plain version in float64,
+    ``_k2_f64_errors``), the moments to a relative L2 error of 1e-3 in
+    bf16 (fp32 sums of 3M rounded values in another order) or 1e-5 in
+    fp32; on the engine its operand pass h against ``stage_gelu_ref``
+    within TOL; on a main-path bf16 shape it must take the engine.
+    Returns (good, log line, (y's errors, h's or None), y, c)."""
+    import torch
+
+    from babe_tpu_torch import kernels
+    from babe_tpu_torch.ops import conv_kernels as ck
+
+    B, F, T, C = x.shape
+    dtype = x.dtype
+    dn = str(dtype).split(".")[-1]
+    route = STAGE_ROUTES[kernels.stage_fwd_route(dtype, B, F, T, C, d)]
+    y, mom, c = kernels.launch_fused_stage(x, a, s, w, d, want_conv=True)
+    ry, rmom, rc = ck._dil_stage_parts(x, a, s, w, d)
+    torch.cuda.synchronize()
+    ey, ec, em = errs(y, ry), errs(c, rc), errs(mom, rmom)
+    line = (f"K2 {dn:8s} [{route}] B={B} F={F:3d} T={T:4d} C={C:3d} "
+            f"d={d:2d}: y max_abs={ey[0]:.3e} max_rel={ey[1]:.2e} "
+            f"l2_rel={ey[2]:.2e}; conv l2_rel={ec[2]:.2e}; mom l2_rel="
+            f"{em[2]:.2e}")
+    if dtype == torch.bfloat16:
+        good = within(ey, dn) and within(ec, dn) and em[2] <= 1e-3
+    else:
+        kc, pc, ky, py = _k2_f64_errors(x, a, s, w, d, y, c)
+        good = (max(ey[1], ec[1]) <= TOL[dn]["max_rel"]
+                and kc <= K2_FP32_RATIO * pc and ky <= K2_FP32_RATIO * py
+                and em[2] <= 1e-5)
+        line += (f"; vs float64: conv l2_rel kernel {kc:.2e} plain "
+                 f"{pc:.2e}, y kernel {ky:.2e} plain {py:.2e}")
+    eh = None
+    if route == "engine":
+        h = kernels.launch_stage_fwd_operand(x, a)
+        rh = ck.stage_gelu_ref(x, a)
+        torch.cuda.synchronize()
+        eh = errs(h, rh)
+        good &= within(eh, dn)
+        line += (f"; h flips {int((h != rh).sum())} max_rel="
+                 f"{eh[1]:.2e}")
+    if main_path and dtype == torch.bfloat16 and route != "engine":
+        good = False
+    return good, f"{line} {'ok' if good else 'FAIL'}", (ey, eh), y, c
 
 
 def _stage_bwd_case(x, a, s, w, y, c, d, g, main_path=False):
@@ -543,6 +633,150 @@ def _kernel_edges(dtype, g) -> bool:
         good, line, _, _ = _stage_bwd_case(x, a, s, w, y, c, d, g)
         ok &= good
         log(f"{line} (edge)")
+    return ok
+
+
+# K2's forward's edge shapes (B, F, T, C, d), those of its backward:
+# ragged T (20, 70), T = 8 (the tile), C = 96 (the engine) and C = 100
+# (the tile), d = 64 on F = 384 and 448, the largest and the deepest stage
+# at batch 4
+STAGE_FWD_EDGE = STAGE_BWD_EDGE
+# K3's (B, F, T, C, d): ragged T (20, 70) on the engine's narrowest and
+# next widths, T = 8 (the tile), C = 96 (the engine) and C = 100 (the
+# tile), d = 64 on F = 384 and 448, the largest int8 stage and the
+# deepest at batch 4
+K3_EDGE = [(1, 48, 20, 96, 1), (1, 64, 70, 128, 4), (1, 64, 8, 96, 2),
+           (1, 64, 40, 96, 2), (1, 64, 40, 100, 2), (1, 384, 64, 256, 64),
+           (1, 448, 32, 256, 64), (4, 128, 1024, 96, 1),
+           (4, 448, 32, 256, 64)]
+
+
+def _stage_fwd_edges(dtype, g) -> bool:
+    """K2 at ``STAGE_FWD_EDGE`` and K3 at ``K3_EDGE`` against their plain
+    versions, checked and logged with the route each took."""
+    import torch
+
+    dev = torch.device("cuda")
+    ok = True
+    for B, F, T, C, d in STAGE_FWD_EDGE:
+        x = torch.randn((B, F, T, C), generator=g, device=dev).to(dtype)
+        w = (torch.randn((5, 3, C, C), generator=g, device=dev)
+             / math.sqrt(15 * C)).to(dtype)
+        a = 0.5 + torch.rand((B, C), generator=g, device=dev)
+        s = torch.randn((B, C), generator=g, device=dev)
+        good, line, _, _, _ = _stage_fwd_case(x, a, s, w, d)
+        ok &= good
+        log(f"{line} (edge)")
+    for B, F, T, C, d in K3_EDGE:
+        ok &= _kernel_int8_stage(B, F, T, C, d, 0, dtype, g, None, None,
+                                 edge=True)
+    return ok
+
+
+# the fixed seeds of K2's fp32 evidence: every flagship stage shape is
+# drawn once per seed from its own generator
+K2_FP32_SEEDS = (101, 102, 103, 104, 105)
+# K2's fp32 conv output and y are held to the plain version run in float64
+# on the same inputs: each relative L2 error at most this many times the
+# plain fp32 version's own.  A fixed bar against the plain fp32 version
+# (TOL's l2_rel, 2e-6) measured how two fp32 roundings of the same math
+# differ, each 1e-6 to 2e-6 from float64 (PERF.md, section 6)
+K2_FP32_RATIO = 2.0
+
+
+def _conv_f64(x, w, d):
+    """The (5,3) 'SAME' conv at dilation (d,1) of float64 x and w, summed
+    in float64."""
+    import torch
+
+    B, F, T, _ = x.shape
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 2 * d, 2 * d))
+    acc = torch.zeros((B, F, T, w.shape[3]), dtype=torch.float64,
+                      device=x.device)
+    for kf in range(5):
+        for kt in range(3):
+            acc += torch.matmul(xp[:, kf * d:kf * d + F, kt:kt + T, :],
+                                w[kf, kt])
+    return acc
+
+
+def _k2_f64_errors(x, a, s, w, d, y, c):
+    """K2's fp32 conv output c and y (the kernel's) against the plain
+    version run in float64 on the same fp32 inputs (the gelu polynomial,
+    the conv and the residual all in float64), beside the plain fp32
+    version's own errors.  Relative L2 errors: (kernel c, plain c, kernel
+    y, plain y)."""
+    import torch
+
+    from babe_tpu_torch.ops import conv_kernels as ck
+
+    ry, _, rc = ck._dil_stage_parts(x, a, s, w, d)
+    x64 = x.double()
+    u = x64 * a.double()[:, None, None, :]
+    z = torch.clamp(u * 0.7071067811865475, -3.2, 3.2)
+    c64 = _conv_f64(0.5 * u * (1.0 + ck._erf_poly(z)), w.double(), d)
+    y64 = (x64 + c64 * s.double()[:, None, None, :]) / math.sqrt(2.0)
+    return (errs(c, c64)[2], errs(rc, c64)[2], errs(y, y64)[2],
+            errs(ry, y64)[2])
+
+
+def _k2_sums_errors(x, a, w, d):
+    """The conv's fp32 sums alone: the tile's (K1's fp32 route, the same
+    summation as K2's fp32 tile) and the plain version's, each on the plain
+    version's h, against a float64 conv of that h.  Relative L2 errors:
+    (tile, plain)."""
+    from babe_tpu_torch import kernels
+    from babe_tpu_torch.ops import conv_kernels as ck
+
+    h = ck.stage_gelu_ref(x, a)
+    ch64 = _conv_f64(h.double(), w.double(), d)
+    return (errs(kernels.launch_conv5x3(h, w, d), ch64)[2],
+            errs(ck.conv_ref(h, w, d), ch64)[2])
+
+
+def _k2_fp32_evidence(k2_shapes) -> bool:
+    """K2 in fp32 (the kFwd tile) at every flagship stage shape and every
+    seed of ``K2_FP32_SEEDS``, held to the plain version in float64 beside
+    the plain fp32 version's own error (``_k2_f64_errors``: each within
+    K2_FP32_RATIO of it), and the conv's sums alone (``_k2_sums_errors``,
+    logged); one line per shape with the largest ratio over the seeds."""
+    import torch
+
+    from babe_tpu_torch import kernels
+
+    dev = torch.device("cuda")
+    worst = [0.0, 0.0, 0.0]
+    ok = True
+    for (F, T, C, d) in sorted(k2_shapes):
+        rows = []
+        for seed in K2_FP32_SEEDS:
+            g = torch.Generator(device=dev).manual_seed(seed)
+            x = torch.randn((1, F, T, C), generator=g, device=dev)
+            w = torch.randn((5, 3, C, C), generator=g, device=dev) / (
+                math.sqrt(15 * C))
+            a = 0.5 + torch.rand((1, C), generator=g, device=dev)
+            s = torch.randn((1, C), generator=g, device=dev)
+            y, _, c = kernels.launch_fused_stage(x, a, s, w, d,
+                                                 want_conv=True)
+            rows.append(_k2_f64_errors(x, a, s, w, d, y, c)
+                        + _k2_sums_errors(x, a, w, d))
+        ratio = [max(r[i] / r[i + 1] for r in rows) for i in (0, 2, 4)]
+        worst = [max(v, r) for v, r in zip(worst, ratio)]
+        good = max(ratio[:2]) <= K2_FP32_RATIO
+        ok &= good
+
+        def col(i):
+            return "/".join(f"{r[i]:.2e}" for r in rows)
+        log(f"K2 float32 vs float64 F={F:3d} T={T:4d} C={C:3d} d={d:2d}: "
+            f"conv kernel {col(0)} plain {col(1)} (ratio <= {ratio[0]:.2f})"
+            f"; y kernel {col(2)} plain {col(3)} (<= {ratio[1]:.2f}); "
+            f"sums alone tile {col(4)} plain {col(5)} (<= {ratio[2]:.2f})"
+            f" {'ok' if good else 'FAIL'}")
+    log(f"K2 float32 vs float64 over {len(k2_shapes)} shapes x seeds "
+        f"{K2_FP32_SEEDS}: the largest ratio of the kernel's relative L2 "
+        f"error to the plain fp32 version's: conv {worst[0]:.2f}, y "
+        f"{worst[1]:.2f}, the conv's sums alone {worst[2]:.2f} (bar "
+        f"{K2_FP32_RATIO:g} on conv and y)")
     return ok
 
 
@@ -790,13 +1024,15 @@ def _kernel_dw(account, k1_shapes, k2_shapes, B: int = 4) -> bool:
     return ok
 
 
-def _kernel_int8_stage(F, T, C, d, count, dtype, g, account,
-                       library_conv) -> bool:
+def _kernel_int8_stage(B, F, T, C, d, count, dtype, g, account,
+                       library_conv, edge=False) -> bool:
     """K3 at one stage shape against its plain version on the same inputs:
     the share of int8 conv inputs that differ (at most 1e-4); y within TOL
     when none differs, else at a relative L2 error of 1e-3; the amax row to
-    1e-6 relative and the sums to 1e-5 (1e-4 with flips).  In bf16 it also
-    times the kernel, the plain version and a bf16 cuDNN conv."""
+    1e-6 relative and the sums to 1e-5 (1e-4 with flips); a bf16 main-path
+    shape must take the engine.  Except at an edge shape, in bf16 it also
+    times the kernel (its operand pass included), the plain version and a
+    bf16 cuDNN conv, and the engine's operand pass alone."""
     import torch
 
     from babe_tpu_torch import kernels
@@ -804,14 +1040,15 @@ def _kernel_int8_stage(F, T, C, d, count, dtype, g, account,
 
     dev = torch.device("cuda")
     dn = str(dtype).split(".")[-1]
-    x = torch.randn((1, F, T, C), generator=g, device=dev).to(dtype)
+    x = torch.randn((B, F, T, C), generator=g, device=dev).to(dtype)
     w = torch.randn((5, 3, C, C), generator=g, device=dev) / math.sqrt(15 * C)
-    a = 0.5 + torch.rand((1, C), generator=g, device=dev)
-    s = torch.randn((1, C), generator=g, device=dev)
+    a = 0.5 + torch.rand((B, C), generator=g, device=dev)
+    s = torch.randn((B, C), generator=g, device=dev)
     qw, sw = ck.quant_weight_per_cout(w)
     qwt = kernels.tap_major(qw)
     bound = 1.02 * (x.float() * a[:, None, None, :]).abs().amax((1, 2, 3))
     iv, post = ck.int8_scales(bound, s, sw)
+    route = STAGE_ROUTES[kernels.stage_int8_route(dtype, B, F, T, C, d)]
     y, mom, q = kernels.launch_fused_stage_int8(x, a, iv, post, qwt, d,
                                                 want_q=True)
     ry, rmom, rq = ck._int8_stage_parts(x, a, iv, post, qw, d)
@@ -823,13 +1060,16 @@ def _kernel_int8_stage(F, T, C, d, count, dtype, g, account,
                      / rmom[2].abs().max().clamp(min=1e-30))
     good = (share <= 1e-4 and amax_rel <= 1e-6
             and (within(ey, dn) if flips == 0 else ey[2] <= 1e-3)
-            and esum[2] <= (1e-5 if flips == 0 else 1e-4))
-    line = (f"K3 {dn:8s} F={F:3d} T={T:4d} C={C:3d} d={d:2d} x{count}: "
-            f"q flips {flips} ({share:.2e}) y max_abs={ey[0]:.3e} "
+            and esum[2] <= (1e-5 if flips == 0 else 1e-4)
+            and not (dtype == torch.bfloat16 and count > 0
+                     and route != "engine"))
+    line = (f"K3 {dn:8s} [{route}] B={B} F={F:3d} T={T:4d} C={C:3d} "
+            f"d={d:2d}{' (edge)' if edge else f' x{count}'}: q flips "
+            f"{flips} ({share:.2e}) y max_abs={ey[0]:.3e} "
             f"max_rel={ey[1]:.2e} l2_rel={ey[2]:.2e}; sums l2_rel="
             f"{esum[2]:.2e} amax rel={amax_rel:.1e} "
             f"{'ok' if good else 'FAIL'}")
-    if dtype == torch.bfloat16:
+    if dtype == torch.bfloat16 and not edge:
         t_k = cuda_time(lambda: kernels.launch_fused_stage_int8(
             x, a, iv, post, qwt, d))
         t_p = cuda_time(lambda: ck.dil_stage_int8_ref(x, a, iv, post, qw, d),
@@ -844,6 +1084,22 @@ def _kernel_int8_stage(F, T, C, d, count, dtype, g, account,
                  f"cudnn(bf16)={t_l:.4f}")
         account("fused_stage_int8", count, dtype, t_k, t_p, t_l, flops,
                 nbytes, ey, op_dtype=torch.int8)
+        if route == "engine":
+            # the operand pass alone: x read, q written, about 30 fp32
+            # operations per element (the gelu polynomial, the scale and
+            # the rounding)
+            t_o = cuda_time(lambda: kernels.launch_stage_int8_operand(
+                x, a, iv))
+            t_op = cuda_time(lambda: ck.stage_quant_ref(x, a, iv), reps=2)
+            o_flops = 30.0 * F * T * C
+            o_bytes = F * T * C * (x.element_size() + 1)
+            bo, byo = bound_ms(o_flops, o_bytes, torch.float32)
+            line += (f"; operand pass ms={t_o:.4f} bound={bo:.4f}({byo}) "
+                     f"plain={t_op:.4f}")
+            eq = float((q.int() - rq.int()).abs().max())
+            account("stage_int8_operand", count, dtype, t_o, t_op, 0.0,
+                    o_flops, o_bytes, (eq, 0.0, 0.0),
+                    op_dtype=torch.float32)
     log(line)
     return good
 
@@ -1359,7 +1615,8 @@ def phase_requests(results: dict, T: int = 35, n_blind: int = 2):
             if counts[name] <= 0:
                 raise RuntimeError(f"kernel {name} never launched on the "
                                    f"{prec} path")
-        if prec == "bf16" and counts["fused_stage_int8"] != 0:
+        if prec == "bf16" and (counts["fused_stage_int8"]
+                               or counts["stage_int8_operand"]):
             raise RuntimeError("the bf16 model launched the int8 stage")
         results[f"launches_{prec}"] = counts
         del m
@@ -1367,8 +1624,8 @@ def phase_requests(results: dict, T: int = 35, n_blind: int = 2):
     launches = results.setdefault("launches", {})
     launches.update({k: results["launches_bf16"][k] for k in BF16_PATH
                      if k not in DW_KERNELS})
-    launches["fused_stage_int8"] = results["launches_int8"][
-        "fused_stage_int8"]
+    for k in ("fused_stage_int8", "stage_int8_operand"):
+        launches[k] = results["launches_int8"][k]
 
 
 def train_launches_per_step(net) -> dict:
@@ -1383,8 +1640,12 @@ def train_launches_per_step(net) -> dict:
                  if isinstance(b, ResnetBlock) and b.fused)
     pyr = sum(1 for m in net.children()
               if isinstance(m, Conv2d) and m.kernel_size == (5, 3))
+    # every flagship stage takes K2's engine, which launches its operand
+    # pass once per call (the kernels phase and the CPU tests check the
+    # routes)
     return {"conv5x3": pyr, "conv_dw": pyr,
             "fused_stage": stages * (2 if net.remat else 1),
+            "stage_fwd_operand": stages * (2 if net.remat else 1),
             "fused_stage_bwd": stages, "stage_dw_operands": stages,
             "fused_stage_dw": stages}
 

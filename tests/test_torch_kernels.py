@@ -245,8 +245,10 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing(rng):
     X = torch.randn((1, 33, 4), dtype=torch.complex64)
     s_.fit_params(X, X, s_.blind.initial_params())
     assert set(kernels.LAUNCHES) == {"conv5x3", "fused_stage",
+                                     "stage_fwd_operand",
                                      "fused_stage_bwd", "filter_fit",
-                                     "fused_stage_int8", "probe_gemm",
+                                     "fused_stage_int8",
+                                     "stage_int8_operand", "probe_gemm",
                                      "probe_stage", "dilated_conv",
                                      "conv_dw", "stage_dw_operands",
                                      "fused_stage_dw"}

@@ -141,34 +141,38 @@ def test_stage_bwd_routes_at_the_edges(B, F, T, C, d, want):
 
 
 def _stage_terms_once(plan):
-    """Walk the engine's cut as the kernel does: block (gx, gy, b), its
-    128 positions (warpgroup q // 64), ring stages it = (chunk, kf), taps
-    kt.  Count each (b, f, t, kf, kt, chunk) term whose source position
-    lies inside the image, and check each position's window cell lies in
-    the staged TF x (TT+2) window."""
-    B, F, T, C, d = plan.B, plan.F, plan.T, plan.C, plan.d
+    """Walk the engine's cut as the kernel does: block (gx, gy, z), z = b *
+    splits + j owning channel tile j, its 128 positions (warpgroup q //
+    64), ring stages it = (chunk, kf), taps kt.  Count each (b, f, t, kf,
+    kt, chunk) term whose source position lies inside the image, once per
+    channel tile, and check each position's window cell lies in the staged
+    TF x (TT+2) window."""
+    B, F, T, C, d, S = plan.B, plan.F, plan.T, plan.C, plan.d, plan.splits
     nch = C // kernels.STAGE_KC
-    cnt = np.zeros((B, F, T, 5, 3, nch), np.int32)
-    out = np.zeros((B, F, T), np.int32)
+    assert plan.gz == B * S and C % S == 0
+    cnt = np.zeros((B, F, T, 5, 3, nch, S), np.int32)
+    out = np.zeros((B, F, T, S), np.int32)
     q = np.arange(kernels.STAGE_POS)
     fr, col = q >> plan.tt_log2, q & (plan.TT - 1)
     assert (fr < plan.TF).all() and plan.TT * plan.TF == kernels.STAGE_POS
     # a warpgroup's 64 positions span TF / 2 rows of F when T < 64
     assert len(set(fr[:64])) == max(1, plan.TF // 2)
-    for b in range(plan.gz):
+    for z in range(plan.gz):
+        b, j = divmod(z, S)
         for by in range(plan.gy):
             for bx in range(plan.gx):
                 f, t = by * plan.TF + fr, bx * plan.TT + col
                 live = (f < F) & (t < T)
                 f, t, c0 = f[live], t[live], col[live]
-                np.add.at(out, (b, f, t), 1)
+                np.add.at(out, (b, f, t, j), 1)
                 for it in range(plan.n_it):
                     chunk, kf = divmod(it, 5)
                     for kt in range(3):
                         assert (c0 + kt < plan.TT + 2).all()
                         fs, ts = f + (kf - 2) * d, t + kt - 1
                         ok = (fs >= 0) & (fs < F) & (ts >= 0) & (ts < T)
-                        np.add.at(cnt, (b, f[ok], t[ok], kf, kt, chunk), 1)
+                        np.add.at(cnt, (b, f[ok], t[ok], kf, kt, chunk, j),
+                                  1)
     return cnt, out
 
 
@@ -195,7 +199,7 @@ def test_stage_plan_sums_every_term_exactly_once(B, F, T, C, d):
     assert plan.n_it == 5 * C // kernels.STAGE_KC
     cnt, out = _stage_terms_once(plan)
     assert (out == 1).all()
-    want = _inside(B, F, T, d)[..., None]
+    want = _inside(B, F, T, d)[..., None, None]
     assert (cnt == want).all()
 
 
