@@ -1,13 +1,15 @@
-// The int8 probe's kernels: what int8 mma buys over bf16 on this card at
-// the fused stage's GEMM shapes.
+// The int8 probe's kernels: what int8 products buy over bf16 on this card
+// at the fused stage's GEMM shapes.
 //
 //   P1 babe_probe_gemm:  out = A (M, K) @ B (K, N), B given as Bt (N, K);
-//      bf16 in, fp32 accumulate, bf16 out (mma m16n8k16), or int8 in,
-//      int32 out (mma m16n8k32), repeated `reps` times in one launch with
-//      the dependency described for P2 (the TPU probe chains 16 calls in
-//      a scan for the same reason: one product is shorter than the cost
-//      of dispatching it).  Replaces tools/probe_pallas_int8.py::make_gemm
-//      (a one-tile Pallas GEMM).
+//      bf16 in, fp32 accumulate, bf16 out (wgmma m64nNk16), or int8 in,
+//      int32 out (wgmma m64nNk32 s8), repeated `reps` times in one launch
+//      (the TPU probe chains 16 calls in a scan for the same reason: one
+//      product is shorter than the cost of dispatching it).  The Hopper
+//      GEMM of probe_gemm_sm90.cuh: a TMA ring and the stage engine's
+//      instruction pair, so its int8:bf16 rate ratio is that of the
+//      tensor-core core K2 and K3 run.  Replaces
+//      tools/probe_pallas_int8.py::make_gemm (a one-tile Pallas GEMM).
 //   P2 babe_probe_stage: K3's core without its prologue and epilogue.
 //      Staged rows h (BF + 4d, BT + 16, C) -> out (BF*BT, C) with
 //      out[f*BT + t, n] = sum_{kf, kt, c} h[f + kf*d, 7 + kt + t, c] *
@@ -22,12 +24,13 @@
 //      tools/probe_pallas_int8.py::make_stage, whose repetitions feed the
 //      accumulator back into the staged rows in the same way.
 //
-// Both use the warp tile of mma_frag.cuh (128 positions x 64 channels per
-// block of 8 warps) and the same shared-memory row layout as K3, so their
-// int8:bf16 rate ratio is that of K3's core.  Bound: operations (the
-// probe's shapes give 2*K*reps (P1) or 2*15*C*reps (P2) operations per
-// output element against a few bytes).
+// P2 keeps the mma.sync warp tile of mma_frag.cuh (128 positions x 64
+// channels per block of 8 warps), which the main path's stages no longer
+// run (K2 and K3 run wgmma on stage_mma_sm90.cuh): its ratio is that of
+// the older tile.  Bound: operations (2*15*C*reps operations per
+// output element against a few bytes); P1's, bytes (probe_gemm_sm90.cuh).
 #include "mma_frag.cuh"
+#include "probe_gemm_sm90.cuh"
 
 namespace babe {
 namespace probe {
@@ -37,15 +40,12 @@ using frag::kNB;
 using frag::kThreads;
 using frag::kW;
 
-__device__ __forceinline__ void store_out(void* out, size_t i, float v,
-                                          bool to_bf16) {
-  if (to_bf16)
-    static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16(v);
-  else
-    static_cast<float*>(out)[i] = v;
+// P2's output: fp32 (bf16 products) or int32 (int8 products)
+__device__ __forceinline__ void store_out(void* out, size_t i, float v) {
+  static_cast<float*>(out)[i] = v;
 }
 
-__device__ __forceinline__ void store_out(void* out, size_t i, int v, bool) {
+__device__ __forceinline__ void store_out(void* out, size_t i, int v) {
   static_cast<int*>(out)[i] = v;
 }
 
@@ -65,63 +65,6 @@ __device__ __forceinline__ uint32_t add_carry(uint32_t w, int carry,
   v.x = __float2bfloat16(__bfloat162float(v.x) + (float)carry);
   v.y = __float2bfloat16(__bfloat162float(v.y) + (float)carry);
   return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// P1: one 128 x 64 output tile per block, the contraction in 32-byte chunks
-template <typename E, typename Acc>
-__global__ void __launch_bounds__(kThreads)
-    gemm(const E* __restrict__ a, const E* __restrict__ bt, void* out, int M,
-         int K, int N, int reps, int dep, int vec) {
-  __shared__ __align__(16) uint32_t as[kMB * kW];
-  __shared__ __align__(16) uint32_t bs[kNB * kW];
-  __shared__ int carry;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, q = lane & 3, wm = warp & 3, wn = warp >> 2;
-  const int m0 = blockIdx.x * kMB, n0 = blockIdx.y * kNB;
-  constexpr int kPer = 4 / sizeof(E);  // elements per 32-bit word
-  if (tid == 0) carry = 0;
-  __syncthreads();
-  Acc acc[2][4][4];
-  for (int rep = 0; rep < reps; ++rep) {
-    frag::zero(acc);
-    const int cr = carry;
-    for (int k0 = 0; k0 < K; k0 += 8 * kPer) {
-      for (int u = tid; u < (kMB + kNB) * 8; u += kThreads) {
-        const int h = u & 7, r = u >> 3;
-        const int kk = k0 + h * kPer;
-        const bool is_a = r < kMB;
-        const int row = is_a ? m0 + r : n0 + r - kMB;
-        uint32_t v = 0;
-        if (row < (is_a ? M : N) && kk < K)
-          v = frag::load_word((is_a ? a : bt) + (size_t)row * K + kk,
-                              (K - kk) * (int)sizeof(E), vec != 0);
-        if (is_a)
-          as[r * kW + h] = add_carry(v, cr, E());
-        else
-          bs[(r - kMB) * kW + h] = v;
-      }
-      __syncthreads();
-      frag::warp_mma(acc, as + (wm * 32 + g) * kW + q,
-                     as + (wm * 32 + 16 + g) * kW + q,
-                     bs + (wn * 32 + g) * kW + q);
-      __syncthreads();
-    }
-    if (tid == 0) carry = (int)acc[0][0][0] * dep;
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int m = m0 + wm * 32 + i * 16 + g + 8 * hr;
-          const int n = n0 + wn * 32 + j * 8 + 2 * q + e;
-          if (m < M && n < N)
-            store_out(out, (size_t)m * N + n, acc[i][j][hr * 2 + e], true);
-        }
 }
 
 struct StageParams {
@@ -222,7 +165,7 @@ __global__ void __launch_bounds__(kThreads) stage(StageParams p) {
           const int n = n0 + wn * 32 + j * 8 + 2 * q + e;
           if (f < p.BF && t < p.BT && n < C)
             store_out(p.out, ((size_t)f * p.BT + t) * C + n,
-                      acc[i][j][hr * 2 + e], false);
+                      acc[i][j][hr * 2 + e]);
         }
 }
 
@@ -254,28 +197,27 @@ inline bool aligned4(const void* p) {
 }  // namespace probe
 }  // namespace babe
 
-// dtype: 1 = bf16, 2 = int8
+// dtype: 1 = bf16, 2 = int8; bn: the block's output columns (32 or 64,
+// kernels.probe_gemm_plan).  K a whole number of 32-byte slices, both
+// operands 16-byte aligned.
 extern "C" int babe_probe_gemm(const void* a, const void* bt, void* out,
                                int M, int K, int N, int reps, int dep,
-                               int dtype, void* stream) {
-  using namespace babe::probe;
-  if (M <= 0 || N <= 0 || K <= 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid((M + kMB - 1) / kMB, (N + kNB - 1) / kNB);
-  if (dtype == 1) {
-    const int vec = K % 2 == 0 && aligned4(a) && aligned4(bt);
-    gemm<__nv_bfloat16, float><<<grid, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(a),
-        static_cast<const __nv_bfloat16*>(bt), out, M, K, N, reps, dep, vec);
-  } else if (dtype == 2) {
-    const int vec = K % 4 == 0 && aligned4(a) && aligned4(bt);
-    gemm<int8_t, int><<<grid, kThreads, 0, st>>>(
-        static_cast<const int8_t*>(a), static_cast<const int8_t*>(bt), out,
-        M, K, N, reps, dep, vec);
-  } else {
+                               int dtype, int bn, void* stream) {
+  using namespace babe::gemm90;
+  if (M <= 0 || N <= 0 || K <= 0 || reps <= 0) return 0;
+  const int elem = dtype == 1 ? 2 : 1;
+  if ((dtype != 1 && dtype != 2) || (bn != 32 && bn != 64) ||
+      (K * elem) % 32 != 0 || reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(bt) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return bn == 32 ? launch<__nv_bfloat16, 32>(a, bt, out, M, K, N, reps,
+                                                dep, st)
+                    : launch<__nv_bfloat16, 64>(a, bt, out, M, K, N, reps,
+                                                dep, st);
+  return bn == 32 ? launch<int8_t, 32>(a, bt, out, M, K, N, reps, dep, st)
+                  : launch<int8_t, 64>(a, bt, out, M, K, N, reps, dep, st);
 }
 
 extern "C" int babe_probe_stage(const void* h, const void* wt, void* out,

@@ -1,8 +1,10 @@
-// Shared-memory staging and fragment loads of the Hopper kernels written
-// after mma_frag.cuh (which K3 and the int8 probe keep as it is): 16-byte
-// cp.async with zero fill, its groups, the fence that hands shared memory
-// written by threads to wgmma, and ldmatrix.  Used by stage_mma_sm90.cuh
-// (K2's backward) and conv5x3_narrow.cuh (K1's narrow routes).
+// Shared-memory staging, fragment loads and wgmma synchronisation of the
+// Hopper kernels written after mma_frag.cuh (which P2 and the tiles keep as
+// it is): 16-byte cp.async with zero fill, its groups, the fence that hands
+// shared memory written by threads to wgmma, ldmatrix, wgmma's fence,
+// commit and wait, mbarriers and the TMA's 2-D tile load.  Used by
+// stage_mma_sm90.cuh (the stage engine), conv5x3_narrow.cuh (K1's narrow
+// routes) and probe_gemm_sm90.cuh (P1).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -57,6 +59,71 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int K>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(K) : "memory");
+}
+
+// keep the compiler from moving accumulator reads or writes across the
+// asynchronous products
+template <int K>
+__device__ __forceinline__ void fence_acc(float (&d)[K]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int K>
+__device__ __forceinline__ void fence_acc(int32_t (&d)[K]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// mbarriers in shared memory (addresses from smem_u32)
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+// the barriers' initialisation made visible to the async proxy (the TMA)
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// arrive and expect `bytes` more from asynchronous copies in this phase
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra WAIT;\nDONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// TMA: the box at (c0 innermost, c1) of the tensor map `map` (a kernel
+// parameter) into shared memory at dst, completing on the mbarrier bar
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map,
+                                            int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
 }
 
 }  // namespace sm90

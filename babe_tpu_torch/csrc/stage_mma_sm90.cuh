@@ -132,17 +132,6 @@ __device__ __forceinline__ uint64_t desc_b(uint32_t addr) {
          ((uint64_t)(256 >> 4) << 32);
 }
 
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int K>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(K) : "memory");
-}
-
 // one stage's product operands: A for the three taps, B's descriptors
 struct Operands {
   uint32_t a[3][4];
@@ -158,19 +147,6 @@ __device__ __forceinline__ void hold(Operands& o) {
     for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(o.a[kt][i]));
     asm volatile("" : "+l"(o.b[kt]));
   }
-}
-
-// keep the compiler from moving accumulator reads or writes across the
-// asynchronous products
-template <int K>
-__device__ __forceinline__ void fence_acc(float (&d)[K]) {
-#pragma unroll
-  for (int i = 0; i < K; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-template <int K>
-__device__ __forceinline__ void fence_acc(int32_t (&d)[K]) {
-#pragma unroll
-  for (int i = 0; i < K; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 template <int NT>

@@ -11,8 +11,10 @@ Thirteen kernels: ``conv5x3`` (K1, ``csrc/conv5x3.cu``), ``fused_stage``
 (K2's backward), all in ``csrc/fused_stage.cu``, ``filter_fit`` (the
 blind sampler's filter fit, ``csrc/filter_fit.cu``), ``fused_stage_int8``
 (K3, the int8 stage) and its operand pass ``stage_int8_operand``, both in
-``csrc/fused_stage_int8.cu``, the int8 probe's ``probe_gemm`` (P1) and
-``probe_stage`` (P2), both in ``csrc/probe_int8.cu``, ``dilated_conv``
+``csrc/fused_stage_int8.cu``, the int8 probe's ``probe_gemm`` (P1, the
+TMA + wgmma GEMM of ``csrc/probe_gemm_sm90.cuh``, cut by
+``probe_gemm_plan``) and ``probe_stage`` (P2), both built from
+``csrc/probe_int8.cu``, ``dilated_conv``
 (K4, any odd kernel and both dilations, ``csrc/dilated_conv.cu``), and
 in ``csrc/conv_dw.cu`` the weight-gradient GEMM, counted as ``conv_dw``
 (the dw of K1 and K4) or as ``fused_stage_dw`` (the dw of K2, after its
@@ -24,7 +26,9 @@ route (tiles, narrow in, narrow out) by ``conv5x3_route`` and
 stage engine, ``csrc/stage_mma_sm90.cuh``) by ``stage_fwd_route``,
 ``stage_bwd_route``, ``stage_int8_route`` and ``stage_plan``.  The
 launchers here take tensors, check them, launch on PyTorch's current
-stream and raise when the launch status is not ``cudaSuccess``.  They
+stream and raise when the launch status is not ``cudaSuccess``.  Each
+build keeps ptxas's report beside the library (``BUILD_LOG``, read by
+``ptxas_report``).  They
 count their launches in ``LAUNCHES``; nothing else touches the counts.
 """
 
@@ -34,6 +38,7 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -61,14 +66,14 @@ KERNELS = {
     "fused_stage_bwd": ("fused_stage", "babe_fused_stage_bwd",
                         [_P] * 13 + [_I] * 6 + [_IP, _I, _P]),
     "filter_fit": ("filter_fit", "babe_filter_fit",
-                   [_P] * 5 + [_I] * 3 + [_F] * 4 + [_I] * 3 + [_F] * 4
+                   [_P] * 5 + [_I] * 3 + [_F] * 4 + [_I] * 3 + [_F] * 5
                    + [_P]),
     "fused_stage_int8": ("fused_stage_int8", "babe_fused_stage_int8",
                          [_P] * 10 + [_I] * 6 + [_IP, _I, _P]),
     # the engine's input q = int8(gelu6(x*a) * iv), formed once per element
     "stage_int8_operand": ("fused_stage_int8", "babe_stage_int8_operand",
                            [_P] * 4 + [_I] * 4 + [_P]),
-    "probe_gemm": ("probe_int8", "babe_probe_gemm", [_P] * 3 + [_I] * 6
+    "probe_gemm": ("probe_int8", "babe_probe_gemm", [_P] * 3 + [_I] * 7
                    + [_P]),
     "probe_stage": ("probe_int8", "babe_probe_stage", [_P] * 3 + [_I] * 9
                     + [_P]),
@@ -132,6 +137,9 @@ def build(names=SOURCES) -> dict[str, float]:
             out = _lib_path(n)
             if os.path.exists(out):
                 BUILD_SECONDS[n] = 0.0
+                if os.path.exists(out + ".log"):
+                    with open(out + ".log") as f:
+                        BUILD_LOG[n] = f.read()
                 continue
             tmp = f"{out}.{os.getpid()}.tmp"
             cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
@@ -146,6 +154,8 @@ def build(names=SOURCES) -> dict[str, float]:
             BUILD_SECONDS[n] = time.perf_counter() - t0
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed for {n}.cu:\n{log}")
+            with open(out + ".log", "w") as f:  # ptxas's report, kept
+                f.write(log)
             os.replace(tmp, out)
         for n in todo:
             lib = ctypes.CDLL(_lib_path(n))
@@ -155,6 +165,41 @@ def build(names=SOURCES) -> dict[str, float]:
                     getattr(lib, fn).restype = ctypes.c_int
             _LIBS[n] = lib
         return dict(BUILD_SECONDS)
+
+
+def ptxas_report(log: str) -> dict[str, dict[str, int]]:
+    """Per kernel entry of an ``nvcc -Xptxas -v`` log: its registers, stack
+    frame and spill bytes, and whether ptxas serialized its wgmma (C7513).
+    Keys are the mangled names ptxas prints."""
+    out: dict[str, dict[str, int]] = {}
+    name, serialized = None, []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {"registers": -1, "stack": 0, "spill_stores":
+                                  0, "spill_loads": 0, "c7513": 0})
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:  # an entry's, or a called function's (not reported)
+            name = m.group(1) if m.group(1) in out else None
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name in out:
+            out[name].update(stack=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name in out:
+            out[name]["registers"] = int(m.group(1))
+            continue
+        if "C7513" in line:
+            serialized.append(line)
+    for k in out:
+        out[k]["c7513"] = int(any(k in line for line in serialized))
+    return out
 
 
 def _entry(kernel: str):
@@ -609,24 +654,35 @@ def launch_fused_stage_bwd(g_y, g_mom, y, x, c, a, s, w, d: int, gc=None):
     return dx, dsda[0], dsda[1]
 
 
+# the fit kernel's shapes (csrc/filter_fit.cu): breakpoints per launch, and
+# bins: 17 per thread in registers, one block of 128 threads (256 above
+# 17 x 128 bins)
+FIT_MAX_K = 16
+FIT_MAX_F = 17 * 256
+
+
 def launch_filter_fit(stats: torch.Tensor, freqs: torch.Tensor,
-                      p0: torch.Tensor, cfg, iters: torch.Tensor | None = None
-                      ) -> torch.Tensor:
+                      p0: torch.Tensor, cfg,
+                      iters: torch.Tensor | None = None) -> torch.Tensor:
     """The blind filter fit on the card, all iterations in one launch.
     stats (3, F) fp32 (the fit's per-bin a, b, c), freqs (F,) ascending,
-    p0 (2, K) fp32; cfg carries the optimiser settings (a BlindConfig);
-    ``iters``, an optional int32 (1,) tensor, receives the iterations run.
-    Returns the fitted (2, K) parameters."""
+    the rfft grid of ``cfg.nfft`` at ``cfg.sample_rate``; p0 (2, K) fp32;
+    cfg carries the optimiser settings (a BlindConfig); ``iters``, an
+    optional int32 (1,) tensor, receives the iterations run.  Returns the
+    fitted (2, K) parameters."""
     F = freqs.shape[0]
-    _check(stats, "filter_fit stats", torch.float32, (3, F))
-    _check(freqs, "filter_fit freqs", torch.float32, (F,))
-    _check(p0, "filter_fit p0", torch.float32)
     if p0.dim() != 2 or p0.shape[0] != 2:
         raise ValueError(
             f"filter_fit: p0 must be (2, K), got {tuple(p0.shape)}")
+    K = p0.shape[1]
+    if not (1 <= K <= FIT_MAX_K and 1 <= F <= FIT_MAX_F):
+        raise ValueError(f"filter_fit: K={K} (1..{FIT_MAX_K}) and F={F} "
+                         f"(1..{FIT_MAX_F}) are what the kernel takes")
+    _check(stats, "filter_fit stats", torch.float32, (3, F))
+    _check(freqs, "filter_fit freqs", torch.float32, (F,))
+    _check(p0, "filter_fit p0", torch.float32)
     if iters is not None:
         _check(iters, "filter_fit iters", torch.int32, (1,))
-    K = p0.shape[1]
     out = torch.empty_like(p0)
     fn = _entry("filter_fit")
     rc = fn(stats.data_ptr(), freqs.data_ptr(), p0.data_ptr(), out.data_ptr(),
@@ -634,7 +690,8 @@ def launch_filter_fit(stats: torch.Tensor, freqs: torch.Tensor,
             int(cfg.max_iter), float(cfg.mu[0]), float(cfg.mu[1]),
             float(cfg.tol[0]), float(cfg.tol[1]), int(cfg.clamp_fc),
             int(cfg.clamp_A), int(cfg.only_negative_A), float(cfg.fcmin),
-            float(cfg.fcmax), float(cfg.Amin), float(cfg.Amax), _stream(p0))
+            float(cfg.fcmax), float(cfg.Amin), float(cfg.Amax),
+            float(cfg.nfft) / float(cfg.sample_rate), _stream(p0))
     _status("filter_fit", rc)
     LAUNCHES["filter_fit"] += 1
     return out
@@ -704,27 +761,62 @@ def launch_fused_stage_int8(x, a, iv, post, qwt, d: int,
     return y, mom, q_out
 
 
+@dataclasses.dataclass(frozen=True)
+class GemmPlan:
+    """P1's cut (csrc/probe_gemm_sm90.cuh): a block computes bm x bn
+    outputs; the grid is gx x gy blocks; each repetition walks nk ring
+    stages of 128 bytes of K."""
+    bm: int
+    bn: int
+    gx: int
+    gy: int
+    nk: int
+
+
+def probe_gemm_plan(M: int, K: int, N: int, dtype: torch.dtype,
+                    sms: int = 132) -> GemmPlan:
+    """The tile of a (M, K) @ (K, N) product: 64-row blocks, 64 columns
+    when that gives at least 90% of a wave of ``sms`` blocks, else 32.
+    Raises on a shape the kernel does not take: M or N below 1, or K not a
+    positive whole number of 32-byte slices (16 bf16 or 32 int8 values)."""
+    if dtype not in (torch.bfloat16, torch.int8):
+        raise ValueError(f"probe_gemm: unsupported dtype {dtype}")
+    elem = 2 if dtype == torch.bfloat16 else 1
+    step = 32 // elem
+    if M < 1 or N < 1 or K < step or K % step:
+        raise ValueError(f"probe_gemm: shape (M, K, N) = ({M}, {K}, {N}) "
+                         f"not taken: M, N >= 1 and K a positive multiple "
+                         f"of {step} for {dtype}")
+    gx = -(-M // 64)
+    bn = 64 if gx * -(-N // 64) >= 0.9 * sms else 32
+    return GemmPlan(64, bn, gx, -(-N // bn), -(-K * elem // 128))
+
+
 def launch_probe_gemm(a: torch.Tensor, bt: torch.Tensor,
                       reps: int = 16) -> torch.Tensor:
     """P1 on the card: a (M,K) @ bt (N,K)^T, both bf16 (fp32 accumulate,
     bf16 out) or both int8 (int32 out), repeated ``reps`` times in the
-    launch with a data dependency from each repetition's result into the
-    next one's staging (scaled by a runtime 0, so every repetition computes
-    the same product)."""
-    if a.dtype not in (torch.bfloat16, torch.int8):
-        raise ValueError(f"probe_gemm: unsupported dtype {a.dtype}")
-    _check(a, "probe_gemm a")
+    launch, each repetition's accumulator starting from the previous
+    one's first value times a runtime 0 (so every repetition computes the
+    same product).  The shape is checked (``probe_gemm_plan``) before
+    anything else; both operands must be 16-byte aligned."""
+    if a.dim() != 2 or bt.dim() != 2 or bt.shape[1] != a.shape[1]:
+        raise ValueError(f"probe_gemm: a (M, K) and bt (N, K) expected, got "
+                         f"{tuple(a.shape)} and {tuple(bt.shape)}")
     M, K = a.shape
-    _check(bt, "probe_gemm bt", a.dtype)
-    if bt.dim() != 2 or bt.shape[1] != K:
-        raise ValueError(f"probe_gemm: bt must be (N,{K}), got "
-                         f"{tuple(bt.shape)}")
     N = bt.shape[0]
+    plan = probe_gemm_plan(M, K, N, a.dtype)
+    _check(a, "probe_gemm a")
+    _check(bt, "probe_gemm bt", a.dtype)
+    if a.data_ptr() % 16 or bt.data_ptr() % 16:
+        raise ValueError("probe_gemm: operands must be 16-byte aligned")
+    if reps < 1:
+        raise ValueError(f"probe_gemm: reps={reps} must be at least 1")
     out = torch.empty((M, N), device=a.device, dtype=(
         torch.int32 if a.dtype == torch.int8 else torch.bfloat16))
     fn = _entry("probe_gemm")
     rc = fn(a.data_ptr(), bt.data_ptr(), out.data_ptr(), M, K, N, int(reps),
-            0, _DTYPES[a.dtype], _stream(a))
+            0, _DTYPES[a.dtype], plan.bn, _stream(a))
     _status("probe_gemm", rc)
     LAUNCHES["probe_gemm"] += 1
     return out

@@ -161,14 +161,17 @@ class BlindSampler(Sampler):
                 params0.detach().float().contiguous(), self.blind)
         return self._fit_loop(stats, params0)
 
-    def _fit_loop(self, stats, params0):
+    def _fit_loop(self, stats, params0, trace: list | None = None):
         """The filter-fit kernel's plain version: ``max_iter`` iterations
-        of autograd through ``design_filter`` with a ``done`` mask."""
+        of autograd through ``design_filter`` with a ``done`` mask.  A
+        ``trace`` list receives (params, done) as each iteration starts."""
         b = self.blind
         mu = self._mu.to(params0.device)
         p = params0.detach()
         done = torch.zeros((), dtype=torch.bool, device=p.device)
         for _ in range(b.max_iter):
+            if trace is not None:
+                trace.append((p.detach(), done))
             with torch.enable_grad():
                 pg = p.requires_grad_(True)
                 (g,) = torch.autograd.grad(

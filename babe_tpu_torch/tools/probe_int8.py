@@ -11,9 +11,12 @@ Counterpart of ``tools/probe_pallas_int8.py``, with its two measurements:
      GEMM -> 5 x 3 tap products, 8 dependent repetitions per launch, in
      bf16 and in int8 (babe_probe_stage).
 
-The repetitions keep one launch longer than its dispatch from the host.
 Each prints the time of one product (a launch's time over its
-repetitions) and its rate (Tops/s).  Usage, on a machine with a card:
+repetitions) and its rate (Tops/s).  Launches are timed as device time:
+``reps`` of them captured in one CUDA graph, a replay's time over
+``reps`` (a P1 launch is about as short as its dispatch from the host,
+so timing eager launches would time the host).  Usage, on a machine with
+a card:
 
     python -m babe_tpu_torch.tools.probe_int8 [reps]
 
@@ -97,22 +100,35 @@ def stage_ops(BF, BT, C) -> float:
     return 2.0 * BF * BT * 3 * C * C * 5
 
 
-def _event_ms(fn, reps: int) -> float:
-    fn()
+def device_ms(fn, reps: int, replays: int = 5) -> float:
+    """Device milliseconds of one ``fn()``: ``reps`` calls captured in one
+    CUDA graph (after warm-up calls on a side stream), the mean of
+    ``replays`` replays over ``reps``."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
     torch.cuda.synchronize()
     e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     e0.record()
-    for _ in range(reps):
-        fn()
+    for _ in range(replays):
+        graph.replay()
     e1.record()
     torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / reps
+    return e0.elapsed_time(e1) / (replays * reps)
 
 
 def run(reps: int = 30, log=print) -> list[dict]:
     """Time P1 and P2 at their shapes in bf16 and int8 on the card over
-    ``reps`` launches; one record per (kernel, shape, dtype) with the ms
-    of one product and its Tops/s."""
+    ``reps`` launches in a CUDA graph; one record per (kernel, shape,
+    dtype) with the ms of one product and its Tops/s."""
     if not torch.cuda.is_available():
         raise RuntimeError("probe_int8: no CUDA device; the probe measures "
                            "the card")
@@ -123,7 +139,7 @@ def run(reps: int = 30, log=print) -> list[dict]:
         log(f"-- GEMM ({M},{K})@({K},{N}) (x{GEMM_REPS} inner) --")
         for dt in DTYPES:
             a, _, bt = gemm_inputs(M, K, N, dt, gen, dev)
-            ms = _event_ms(lambda: kernels.launch_probe_gemm(
+            ms = device_ms(lambda: kernels.launch_probe_gemm(
                 a, bt, GEMM_REPS), reps) / GEMM_REPS
             tops = gemm_ops(M, K, N) / (ms * 1e-3) / 1e12
             name = str(dt).split(".")[-1]
@@ -135,7 +151,7 @@ def run(reps: int = 30, log=print) -> list[dict]:
             f"C={C} d={d} (x{STAGE_REPS} inner) --")
         for dt in DTYPES:
             h, _, wt = stage_inputs(BF, BT, C, d, dt, gen, dev)
-            ms = _event_ms(lambda: kernels.launch_probe_stage(
+            ms = device_ms(lambda: kernels.launch_probe_stage(
                 h, wt, BF, BT, d, STAGE_REPS), reps) / STAGE_REPS
             tops = stage_ops(BF, BT, C) / (ms * 1e-3) / 1e12
             name = str(dt).split(".")[-1]

@@ -41,13 +41,23 @@ Phases (any failure exits non-zero; no phase catches and carries on):
                 training batch (4 x 184184 samples), then both at the edge
                 shapes of their cut (rows spanning chunks, ragged T, 96
                 channels, the folded narrow side, d = 64 on F = 384) and
-                conv_dw at K4's kernels with dt = 2.  Each shape also gets
+                conv_dw at K4's kernels with dt = 2; the filter fit at
+                every case of tools/fit_sensitivity.py's FIT_CASES (end
+                point and every single step against the CPU plain loop,
+                its iterations beside the plain loop's, us and SM cycles
+                per iteration; it fails if ptxas gave a fit instantiation
+                a stack frame or spills).  Each shape also gets
                 its time, its bound, the plain version's time and a cuDNN
                 yardstick (a conv, or its weight gradient; bf16 for K3: no
                 PyTorch call computes an int8 conv).
   3. probe      the int8 probe's kernels (P1 GEMM, P2 stage core) against
-                their plain versions (int8 bit-exact), then the probe entry
-                point (``babe_tpu_torch.tools.probe_int8``) at its four shapes
+                their plain versions (int8 bit-exact), P1 also at the edge
+                shapes GEMM_EDGE and refusing GEMM_REFUSED before it
+                launches, with P1's tile, grid and ptxas's C7513 status,
+                the int8:bf16 rate ratios and the yardsticks as device time
+                (cuBLAS for P1, a bf16 cuDNN conv for P2, each captured in
+                a CUDA graph), then the probe entry point
+                (``babe_tpu_torch.tools.probe_int8``) at its four shapes
                 in bf16 and int8, with its launches counted.
   4. check      the model on the card against the same model on the CPU
                 (plain path, itself held to the JAX package by the tests):
@@ -136,7 +146,7 @@ SOURCES = {
     "fused_stage_int8": "babe_tpu_torch/csrc/fused_stage_int8.cu",
     "stage_fwd_operand": "babe_tpu_torch/csrc/fused_stage.cu",
     "stage_int8_operand": "babe_tpu_torch/csrc/fused_stage_int8.cu",
-    "probe_gemm": "babe_tpu_torch/csrc/probe_int8.cu",
+    "probe_gemm": "babe_tpu_torch/csrc/probe_gemm_sm90.cuh",
     "probe_stage": "babe_tpu_torch/csrc/probe_int8.cu",
     "dilated_conv": "babe_tpu_torch/csrc/dilated_conv.cu",
     "conv_dw": "babe_tpu_torch/csrc/conv_dw.cu",
@@ -161,10 +171,17 @@ PER = {
                         "included; library_ms is a bf16 "
                         "cuDNN conv (no PyTorch call computes an int8 conv)",
     "probe_gemm": "one product at each of 2 shapes x (bf16, int8), timed "
-                  "over launches of 16 repetitions; library_ms is cuBLAS "
-                  "(a @ b, torch._int_mm)",
+                  "as device time over launches of 16 repetitions in a "
+                  "CUDA graph; library_ms is cuBLAS "
+                  "(torch.matmul, torch._int_mm) as device time: 16 "
+                  "products in one CUDA graph, a replay over 16",
     "probe_stage": "one product at each of 2 shapes x (bf16, int8), timed "
-                   "over launches of 8 repetitions",
+                   "as device time over launches of 8 repetitions in a "
+                   "CUDA graph; library_ms is a bf16 "
+                   "cuDNN conv of the staged rows (dilation (d,1), sliced "
+                   "to P2's window) for each of the four, 8 in one CUDA "
+                   "graph, a replay over 8 (no PyTorch call computes an "
+                   "int8 conv)",
     "dilated_conv": "one forward at each of the five level shapes of "
                     "pallas_conv.py's table (batch 4, kernel (5,3), N = C), "
                     "bf16; launches: its entry point's forward and dx at "
@@ -184,7 +201,11 @@ PER = {
 }
 # where each kernel's launch count comes from
 LAUNCHES_FROM = {
-    "probe_gemm": "the probe run", "probe_stage": "the probe run",
+    # a wrapper counts the launches made through it: per (shape, dtype) the
+    # probe run's 2 eager warm-ups and the 20 captured into its CUDA graph;
+    # the graph's 6 replays run 120 more that no wrapper sees
+    "probe_gemm": "the probe run (eager and captured; not graph replays)",
+    "probe_stage": "the probe run (eager and captured; not graph replays)",
     "fused_stage_int8": "the int8 requests",
     "stage_int8_operand": "the int8 requests",
     "dilated_conv": "the K4 entry-point run of the kernels phase",
@@ -316,6 +337,8 @@ def phase_identify(kernels):
         f"(one nvcc per source, in parallel; per source "
         f"{ {k: round(v, 1) for k, v in kernels.BUILD_SECONDS.items()} })")
     for name, text in kernels.BUILD_LOG.items():
+        if name == "filter_fit":  # 32 instantiations: the kernels phase
+            continue              # sums them up (_fit_ptxas_gate)
         for line in text.splitlines():
             # the stage engine's and operand passes' entries name the
             # register and spill lines that follow them
@@ -1104,35 +1127,74 @@ def _kernel_int8_stage(B, F, T, C, d, count, dtype, g, account,
     return good
 
 
+# P1's shapes off the probe's: ragged M and N, the smallest K and a K
+# that is not a whole 128-byte ring stage, per type; and shapes the
+# launcher refuses (K not a whole number of 32-byte slices)
+GEMM_EDGE = {"bfloat16": [(100, 48, 70), (1, 16, 1), (2048, 400, 200)],
+             "int8": [(100, 96, 70), (1, 32, 1), (2048, 416, 200)]}
+GEMM_REFUSED = {"bfloat16": (64, 40, 64), "int8": (64, 48, 64)}
+
+
+def _p2_library(h, w5, BF, BT, d):
+    """P2's yardstick: one bf16 cuDNN conv of the staged rows (NHWC, the
+    (5,3) kernel at dilation (d,1), no padding), sliced to P2's window
+    (rows f < BF, columns 7 + t), as (BF*BT, C)."""
+    import torch
+    import torch.nn.functional as Fn
+
+    C = h.shape[2]
+    x = h.to(torch.bfloat16).permute(2, 0, 1).unsqueeze(0)  # channels-last
+    w = (w5.to(torch.bfloat16).reshape(5, 3, C, C).permute(3, 2, 0, 1)
+         .contiguous(memory_format=torch.channels_last))
+
+    def run():
+        y = Fn.conv2d(x, w, dilation=(d, 1))
+        return y[0, :, :BF, 7:7 + BT]
+
+    return run, lambda y: y.permute(1, 2, 0).reshape(BF * BT, C)
+
+
 def phase_probe(results: dict):
     """P1 and P2 against their plain versions at the probe's four shapes
-    (int8 bit-exact, bf16 within TOL), with a cuBLAS product beside P1 as
-    its yardstick; then the probe entry point with the counters zeroed just
-    before and read just after.  Times are of one product: a launch's time
-    over the repetitions it runs."""
+    (int8 bit-exact, bf16 within TOL), P1 also at GEMM_EDGE and refusing
+    GEMM_REFUSED before it launches; P1's tile, grid and ptxas's C7513
+    status; P1's yardstick, cuBLAS, as device time (GEMM_REPS products in
+    one CUDA graph) beside the old eager timing; P2's, a bf16 cuDNN conv
+    of the staged rows; then the probe entry point with the counters
+    zeroed just before and read just after.  Times are of one product: a
+    launch's time over the repetitions it runs."""
     import torch
 
     from babe_tpu_torch import kernels
     from babe_tpu_torch.tools import probe_int8 as probe
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
     agg = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-               "library_ms": 0.0 if k == "probe_gemm" else None,
-               "max_abs_err": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0}
-           for k in PROBE_PATH}
+               "library_ms": 0.0, "max_abs_err": 0.0, "ops_ms": 0.0,
+               "bytes_ms": 0.0} for k in PROBE_PATH}
     ok, rate = True, {}
+    gemm_entries = {k: v for k, v in kernels.ptxas_report(
+        kernels.BUILD_LOG.get("probe_int8", "")).items() if "gemm_tma" in k}
+    log("P1 ptxas: " + "; ".join(
+        f"{k}: {v['registers']} registers, stack {v['stack']}, "
+        f"{'C7513 (serialized wgmma)' if v['c7513'] else 'no C7513'}"
+        for k, v in gemm_entries.items()))
 
-    def judge(name, out, ref, dt, t_k, t_p, t_l, ops, nbytes, shape):
+    def check(out, ref, dt):
+        if dt == torch.int8:
+            return ((float((out.double() - ref.double()).abs().max()), 0.0,
+                     0.0), bool(torch.equal(out, ref)))
+        e = errs(out, ref)
+        return e, within(e, "bfloat16")
+
+    def judge(name, out, ref, dt, t_k, t_p, t_l, ops, nbytes, shape,
+              extra=""):
         nonlocal ok
         dn = str(dt).split(".")[-1]
-        if dt == torch.int8:
-            e = (float((out.double() - ref.double()).abs().max()), 0.0, 0.0)
-            good = bool(torch.equal(out, ref))
-        else:
-            e = errs(out, ref)
-            good = within(e, "bfloat16")
+        e, good = check(out, ref, dt)
         ok &= good
         b, by = bound_ms(ops, nbytes, dt)
         a = agg[name]
@@ -1142,14 +1204,12 @@ def phase_probe(results: dict):
         a["ops_ms"] += bound_ms(ops, 0.0, dt)[0]
         a["bytes_ms"] += 1e3 * nbytes / HBM_BPS
         a["max_abs_err"] = max(a["max_abs_err"], e[0])
-        if t_l is not None:
-            a["library_ms"] += t_l
+        a["library_ms"] += t_l
         rate[name, shape, dn] = ops / (t_k * 1e-3) / 1e12
         log(f"{name} {dn:8s} {shape}: max_abs={e[0]:.3e} "
-            f"{'ok' if good else 'FAIL'} | ms={t_k:.4f} "
-            f"({rate[name, shape, dn]:.1f} TOP/s) bound={b:.4f}({by}) "
-            f"plain={t_p:.4f}" + ("" if t_l is None else
-                                  f" cublas={t_l:.4f}"))
+            f"{'ok' if good else 'FAIL'} | ms={t_k:.5f} "
+            f"({rate[name, shape, dn]:.1f} TOP/s) bound={b:.5f}({by}) "
+            f"plain={t_p:.4f} {extra}")
 
     for M, K, N in probe.GEMM_SHAPES:
         for dt in probe.DTYPES:
@@ -1157,16 +1217,50 @@ def phase_probe(results: dict):
             out = kernels.launch_probe_gemm(a_, bt)
             ref = probe.probe_gemm_ref(a_, b_)
             torch.cuda.synchronize()
-            t_k = cuda_time(lambda: kernels.launch_probe_gemm(
-                a_, bt, probe.GEMM_REPS), 20) / probe.GEMM_REPS
+            # device time: launches captured in a CUDA graph (a launch of
+            # GEMM_REPS products is about as short as its dispatch, so
+            # eager launches, as timed before, time the host)
+            run = lambda: kernels.launch_probe_gemm(a_, bt, probe.GEMM_REPS)
+            t_k = probe.device_ms(run, 8) / probe.GEMM_REPS
+            t_k_eager = cuda_time(run, 20) / probe.GEMM_REPS
             t_p = cuda_time(lambda: probe.probe_gemm_ref(a_, b_), 2)
-            lib = ((lambda: torch._int_mm(a_, b_)) if dt == torch.int8
-                   else (lambda: a_ @ b_))
-            t_l = cuda_time(lib, 20)
+            o = torch.empty_like(out)
+            lib = ((lambda: torch._int_mm(a_, b_, out=o)) if dt == torch.int8
+                   else (lambda: torch.matmul(a_, b_, out=o)))
+            t_eager = cuda_time(lib, 20)
+            t_l = probe.device_ms(lib, probe.GEMM_REPS)
+            plan = kernels.probe_gemm_plan(M, K, N, dt)
             isz, osz = a_.element_size(), out.element_size()
             judge("probe_gemm", out, ref, dt, t_k, t_p, t_l,
                   probe.gemm_ops(M, K, N),
-                  (M * K + K * N) * isz + M * N * osz, (M, K, N))
+                  (M * K + K * N) * isz + M * N * osz, (M, K, N),
+                  f"(eager launches {t_k_eager:.5f}) cublas={t_l:.5f} (graph "
+                  f"of {probe.GEMM_REPS}; eager {t_eager:.5f}) | tile "
+                  f"{plan.bm}x{plan.bn}, grid "
+                  f"{plan.gx}x{plan.gy} = {plan.gx * plan.gy} blocks, "
+                  f"{plan.nk} ring stages per product")
+    for dt in probe.DTYPES:
+        dn = str(dt).split(".")[-1]
+        for M, K, N in GEMM_EDGE[dn]:
+            a_, b_, bt = probe.gemm_inputs(M, K, N, dt, g, dev)
+            out = kernels.launch_probe_gemm(a_, bt, 3)
+            e, good = check(out, probe.probe_gemm_ref(a_, b_), dt)
+            ok &= good
+            log(f"probe_gemm {dn:8s} edge {(M, K, N)}: max_abs={e[0]:.3e} "
+                f"{'ok' if good else 'FAIL'}")
+        M, K, N = GEMM_REFUSED[dn]
+        a_, b_, bt = probe.gemm_inputs(M, K, N, dt, g, dev)
+        before = kernels.LAUNCHES["probe_gemm"]
+        try:
+            kernels.launch_probe_gemm(a_, bt)
+            refused = False
+        except ValueError as err:
+            refused = kernels.LAUNCHES["probe_gemm"] == before
+            log(f"probe_gemm {dn:8s} refuses {(M, K, N)} before launch: "
+                f"{err}")
+        ok &= refused
+        if not refused:
+            log(f"probe_gemm {dn:8s} {(M, K, N)}: FAIL, not refused")
     for BF, BT, C, d in probe.STAGE_SHAPES:
         for dt in probe.DTYPES:
             h, w5, wt = probe.stage_inputs(BF, BT, C, d, dt, g, dev)
@@ -1174,14 +1268,28 @@ def phase_probe(results: dict):
                                              probe.STAGE_REPS)
             ref = probe.probe_stage_ref(h, w5, BF, BT, d)
             torch.cuda.synchronize()
-            t_k = cuda_time(lambda: kernels.launch_probe_stage(
-                h, wt, BF, BT, d, probe.STAGE_REPS), 20) / probe.STAGE_REPS
+            run = lambda: kernels.launch_probe_stage(h, wt, BF, BT, d,
+                                                     probe.STAGE_REPS)
+            t_k = probe.device_ms(run, 4) / probe.STAGE_REPS
+            t_k_eager = cuda_time(run, 20) / probe.STAGE_REPS
             t_p = cuda_time(lambda: probe.probe_stage_ref(h, w5, BF, BT, d),
                             2)
-            judge("probe_stage", out, ref, dt, t_k, t_p, None,
+            conv, flat = _p2_library(h, w5, BF, BT, d)
+            e_l = errs(flat(conv()),
+                       probe.probe_stage_ref(h.to(torch.bfloat16),
+                                             w5.to(torch.bfloat16), BF, BT,
+                                             d))
+            ok &= within(e_l, "bfloat16")
+            t_l = probe.device_ms(conv, probe.STAGE_REPS)
+            judge("probe_stage", out, ref, dt, t_k, t_p, t_l,
                   probe.stage_ops(BF, BT, C),
                   (h.numel() + wt.numel()) * h.element_size()
-                  + out.numel() * 4, (BF, BT, C, d))
+                  + out.numel() * 4, (BF, BT, C, d),
+                  f"(eager launches {t_k_eager:.5f}) "
+                  f"cudnn={t_l:.5f} (bf16 conv, graph of "
+                  f"{probe.STAGE_REPS}; vs the plain version max_rel "
+                  f"{e_l[1]:.2e} {'ok' if within(e_l, 'bfloat16') else 'FAIL'}"
+                  f")")
     for name, shape, dn in sorted(rate):
         if dn == "int8":
             ratio = rate[name, shape, "int8"] / rate[name, shape, "bfloat16"]
@@ -1189,75 +1297,198 @@ def phase_probe(results: dict):
     kernels.reset_launch_counts()
     probe.run(reps=20, log=log)
     launches = {k: kernels.LAUNCHES[k] for k in PROBE_PATH}
-    log(f"launches during the probe run: {launches}")
+    log(f"launches during the probe run: {launches} (through the wrappers: "
+        f"eager warm-ups and CUDA-graph captures; the graphs' replays are "
+        f"not counted)")
     for k, c in launches.items():
         if c <= 0:
             raise RuntimeError(f"kernel {k} never launched in the probe run")
     results.update(agg)
     results.setdefault("launches", {}).update(launches)
+    # cuBLAS keeps a workspace for every stream it ran on: the yardsticks'
+    # warm-up streams would carry 192 MiB into the train phase's peak
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
     if not ok:
-        raise RuntimeError("a probe kernel disagrees with its plain version")
+        raise RuntimeError("a probe kernel disagrees with its plain version "
+                           "or takes a shape it should refuse")
+
+
+# how each fit case's end point is held to the CPU plain loop's.  Two
+# correct fits that round in different orders can end apart, and
+# babe_tpu_torch/tools/fit_sensitivity.py measures by how much for each case
+# of its FIT_CASES: the plain loop's own end point moves when its input or
+# each step moves by one float32 rounding.  Each row (fc, A) is held to
+# 1e-2 x that row's largest |value| where that spread stays below it; "fc
+# past Nyquist" moves further (up to 31 Hz and 14 dB/oct), so it is held to
+# 1e-2 x the largest |value| of both rows; "4097 bins" moves past even that
+# (70 Hz against 30), so its end point is only logged.  Every step of every
+# case is held sharply (_fit_steps).
+FIT_END = {"fc past Nyquist": "whole", "4097 bins": "logged"}
+FIT_TIMED = ("flagship", "513 bins", "4097 bins")
+
+
+def _sm_clock_busy(busy) -> str:
+    """nvidia-smi's SM clock read while ``busy()`` keeps the card working
+    (its launches are queued first, so the card is busy while the query
+    runs)."""
+    import torch
+
+    busy()
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                        "--format=csv,noheader,nounits"], capture_output=True,
+                       text=True, timeout=60)
+    torch.cuda.synchronize()
+    return r.stdout.strip().splitlines()[0] if r.returncode == 0 else "?"
+
+
+def _fit_ptxas_gate(kernels) -> bool:
+    """Every instantiation of the fit kernel has no stack frame and no
+    spills (its per-breakpoint and per-bin arrays live in registers)."""
+    rep = {k: v for k, v in kernels.ptxas_report(
+        kernels.BUILD_LOG.get("filter_fit", "")).items()
+        if "fit_kernel" in k}
+    bad = {k: v for k, v in rep.items()
+           if v["stack"] or v["spill_stores"] or v["spill_loads"]}
+    regs = sorted(v["registers"] for v in rep.values())
+    log(f"filter_fit ptxas: {len(rep)} instantiations, registers "
+        f"{regs[0] if regs else '?'}..{regs[-1] if regs else '?'}, "
+        f"{len(bad)} with a stack frame or spills"
+        + "".join(f"\n  {k}: {v}" for k, v in bad.items()))
+    return bool(rep) and not bad
+
+
+FIT_STEP_BAR = 1e-3
+
+
+def _fit_steps(kernels, cfg, freqs, stats, trace) -> tuple[bool, str]:
+    """One kernel step from each iterate of the CPU plain loop, on the same
+    stats, against the plain loop's own next iterate: per row (fc, A), the
+    largest difference over the row's largest plain step, at most
+    FIT_STEP_BAR (one rounding of fc near 2 kHz is 2.4e-4 Hz; a wrong term
+    of the gradient gives far more).  Unlike the end point, one step does
+    not compound rounding over the iterations."""
+    import dataclasses
+
+    import torch
+
+    one = dataclasses.replace(cfg, max_iter=1)
+    st = torch.stack(stats).cuda().contiguous()
+    worst, scale, n = np.zeros(2), np.zeros(2), 0
+    for (p, done), (q, _) in zip(trace, trace[1:]):
+        if bool(done):
+            break
+        k = kernels.launch_filter_fit(st, freqs, p.to("cuda"), one).cpu()
+        worst = np.maximum(worst, (k - q).abs().amax(1).double().numpy())
+        scale = np.maximum(scale, (q - p).abs().amax(1).double().numpy())
+        n += 1
+    ok = bool((worst <= FIT_STEP_BAR * scale).all()) and n > 0
+    return ok, (f"{n} single steps: max |kernel - plain| (fc, A) "
+                f"{worst[0]:.3e} {worst[1]:.3e} against the largest plain "
+                f"step {scale[0]:.3e} {scale[1]:.3e} (bar {FIT_STEP_BAR} of "
+                f"it) {'ok' if ok else 'FAIL'}")
 
 
 def _kernel_filter_fit(a: dict) -> bool:
     """The filter-fit kernel against its plain version (the eager autograd
-    loop) on the card and on the CPU, at the flagship blind config (4096-point
-    STFT: 2049 bins, 92 frames of random spectra), with its time and bound.
-    One launch per guided evaluation of a blind request."""
+    loop) on the CPU, for every case of fit_sensitivity.FIT_CASES (the
+    flagship blind config: a 4096-point STFT, 2049 bins, 92 frames of random
+    spectra; K = 1 and 16, fc past Nyquist, ties, an exit at tol, a run to
+    max_iter, positive A, 513 and 4097 bins): the end point (FIT_END) and
+    every single step (_fit_steps), with its iterations beside the plain
+    loop's exit iteration.  At the flagship also the plain loop on the card,
+    and for FIT_TIMED the time per evaluation and per iteration (in SM
+    cycles at the clock nvidia-smi reads during the timing), beside its
+    bound.  One launch per guided evaluation of a blind request.  Fails if
+    ptxas gave any fit instantiation a stack frame or spills."""
     import torch
 
     from babe_tpu_torch import kernels
-    from babe_tpu_torch.sampling.blind import BlindConfig, BlindSampler
+    from babe_tpu_torch.sampling.blind import BlindSampler
     from babe_tpu_torch.sampling.heun import SamplerConfig
+    from babe_tpu_torch.tools.fit_sensitivity import (FIT_BAR, FIT_CASES,
+                                                      case_config,
+                                                      case_spectra)
 
-    rng = np.random.default_rng(4)
-    shape = (1, 2049, 92)
-    X = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
-    Y = X * np.linspace(1.0, 0.01, 2049)[None, :, None] ** 2
-    X, Y = (torch.as_tensor(v.astype(np.complex64)) for v in (X, Y))
-    out = {}
-    for dev in ("cpu", "cuda"):
-        s = BlindSampler(None, None, SamplerConfig(), BlindConfig(),
-                         device=dev)
-        p0 = s.blind.initial_params(dev)
-        stats = s._fit_stats(X.to(dev), Y.to(dev))
+    good = _fit_ptxas_gate(kernels)
+
+    def case(name):
+        cfg = case_config(name)
+        X, Y = case_spectra(cfg)
+        K = cfg.initial_params().shape[1]
+        cpu = BlindSampler(None, None, SamplerConfig(), cfg, device="cpu")
+        cpu_stats = cpu._fit_stats(X, Y)
+        trace = []
         with torch.enable_grad():
-            out[dev + " plain"] = s._fit_loop(stats, p0)
-        if dev == "cuda":
-            st = torch.stack(stats).contiguous()
-            iters = torch.zeros(1, dtype=torch.int32, device=dev)
-            out["cuda kernel"] = kernels.launch_filter_fit(
-                st, s.freqs, p0, s.blind, iters)
-            torch.cuda.synchronize()
-            n_it = int(iters.item())
-            t_k = cuda_time(lambda: kernels.launch_filter_fit(
-                st, s.freqs, p0, s.blind))
+            ref = cpu._fit_loop(cpu_stats, cfg.initial_params(), trace)
+        n_plain = sum(1 for _, d in trace if not bool(d))
+        s = BlindSampler(None, None, SamplerConfig(), cfg, device="cuda")
+        p0 = cfg.initial_params("cuda")
+        stats = s._fit_stats(X.cuda(), Y.cuda())
+        st = torch.stack(stats).contiguous()
+        iters = torch.zeros(1, dtype=torch.int32, device="cuda")
+        out = {"cuda kernel": kernels.launch_filter_fit(st, s.freqs, p0, cfg,
+                                                        iters)}
+        n_it = int(iters.item())
+        if name == "flagship":
+            with torch.enable_grad():
+                out["cuda plain"] = s._fit_loop(stats, p0)
+        ref = ref.double()
+        kind = FIT_END.get(name, "row")
+        rows = ref.abs().amax(1).numpy()
+        bar = FIT_BAR * (rows if kind == "row" else np.full(2, rows.max()))
+        ok, e = True, {}
+        for k, v in out.items():
+            e[k] = (v.cpu().double() - ref).abs().amax(1).numpy()
+            ok &= kind == "logged" or bool((e[k] <= bar).all())
+        ok &= n_it == n_plain
+        ok_s, steps = _fit_steps(kernels, cfg, s.freqs, cpu_stats, trace)
+        log(f"filter fit [{name}] K={K} F={cfg.nfft // 2 + 1}: kernel {n_it} "
+            f"iterations, plain loop {n_plain} | end point "
+            + ", ".join(f"{k} vs CPU plain max abs (fc, A) {v[0]:.3e} "
+                        f"{v[1]:.3e}" for k, v in e.items())
+            + (" (logged only: FIT_END)" if kind == "logged" else
+               f" (bar {bar[0]:.3e} {bar[1]:.3e}, {kind})")
+            + f" | {steps} | {'ok' if ok and ok_s else 'FAIL'}")
+        if not ok:
+            log(f"  CPU plain {ref.numpy().round(3).tolist()}\n  kernel "
+                f"{out['cuda kernel'].cpu().numpy().round(3).tolist()}")
+        return ok and ok_s, dict(cfg=cfg, s=s, st=st, p0=p0, n_it=n_it,
+                                 stats=stats, err=float(e["cuda kernel"].max()))
 
-            def plain():
-                with torch.enable_grad():
-                    s._fit_loop(stats, p0)
+    runs = {}
+    for name in FIT_CASES:
+        ok, runs[name] = case(name)
+        good &= ok
+    for name in FIT_TIMED:
+        r = runs[name]
+        t = cuda_time(lambda: kernels.launch_filter_fit(
+            r["st"], r["s"].freqs, r["p0"], r["cfg"]), reps=20)
+        clock = _sm_clock_busy(lambda: [kernels.launch_filter_fit(
+            r["st"], r["s"].freqs, r["p0"], r["cfg"]) for _ in range(2000)])
+        us_it = 1e3 * t / max(r["n_it"], 1)
+        mhz = float(clock) if clock.replace(".", "").isdigit() else float(
+            "nan")
+        r.update(ms=t, us_it=us_it)
+        log(f"filter_fit [{name}]: {r['n_it']} iterations, ms={t:.4f} "
+            f"({us_it:.3f} us, {us_it * mhz:.0f} SM cycles per iteration at "
+            f"{clock} MHz)")
+    r = runs["flagship"]
 
-            t_p = cuda_time(plain, reps=2)
-    ref = out["cpu plain"].double()
-    good = True
-    for k in ("cuda plain", "cuda kernel"):
-        e = float((out[k].cpu().double() - ref).abs().max())
-        g = e <= 1e-2 * float(ref.abs().max())
-        good &= g
-        vals = out[k].cpu().numpy().round(2).tolist()
-        log(f"filter fit ({k}) vs CPU plain: max abs diff {e:.3e} params "
-            f"{vals} {'ok' if g else 'FAIL'}")
-    F = shape[1]
+    def plain():
+        with torch.enable_grad():
+            r["s"]._fit_loop(r["stats"], r["p0"])
+
+    t_p = cuda_time(plain, reps=2)
+    F, n_it = r["s"].freqs.shape[0], r["n_it"]
     flops = 45.0 * F * n_it  # ~45 fp32 operations per bin and iteration
     nbytes = 4.0 * (4 * F + 4 * 5)
     b, by = bound_ms(flops, nbytes, torch.float32)
-    log(f"filter_fit: {n_it} iterations, ms={t_k:.4f} bound={b:.6f}({by}) "
+    log(f"filter_fit: flagship ms={r['ms']:.4f} bound={b:.6f}({by}) "
         f"plain={t_p:.4f} (per blind evaluation, fp32)")
-    a.update(ms=t_k, plain_ms=t_p, bound_ms=b, library_ms=None,
-             max_abs_err=float((out["cuda kernel"].cpu().double()
-                                - ref).abs().max()),
-             ops_ms=1e3 * flops / PEAK_FP32, bytes_ms=1e3 * nbytes / HBM_BPS,
-             shapes=1)
+    a.update(ms=r["ms"], plain_ms=t_p, bound_ms=b, library_ms=None,
+             max_abs_err=r["err"], ops_ms=1e3 * flops / PEAK_FP32,
+             bytes_ms=1e3 * nbytes / HBM_BPS, shapes=1)
     return good
 
 

@@ -3,7 +3,8 @@ backward) against the JAX package: on the CPU each wrapper runs its plain
 PyTorch version, which is held here to the JAX XLA reference and to the
 Pallas kernel in interpret mode, forward and backward, on the same numpy
 inputs.  (The filter-fit kernel's plain version is held to JAX in
-test_torch_sampling.py.)
+test_torch_sampling.py, its arithmetic in test_torch_fit_engine.py; the
+launchers' shape checks and cuts are tested at the end of this file.)
 
 Tolerances: fp32 at 2e-4 (the JAX package's own bar between its Pallas
 kernel and XLA, tests/test_conv_kernels.py); bf16 as a relative L2 error of
@@ -270,3 +271,81 @@ def test_launchers_refuse_cpu_tensors():
         kernels.launch_fused_stage_bwd(
             x, torch.zeros((2, 1, 4)), x, x, x, torch.ones((1, 4)),
             torch.ones((1, 4)), torch.zeros((5, 3, 4, 4)), 1)
+
+
+# the probe's GEMM shapes (babe_tpu_torch/tools/probe_int8.py:GEMM_SHAPES)
+@pytest.mark.parametrize("shape,bn", [((2048, 384, 128), 32),
+                                      ((2048, 768, 256), 64)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+def test_probe_gemm_plan_fills_a_wave(shape, bn, dtype):
+    """P1's tile: 64 rows, 32 or 64 columns, so that both probe shapes
+    give 128 blocks for the H100's 132 SMs."""
+    M, K, N = shape
+    plan = kernels.probe_gemm_plan(M, K, N, dtype)
+    assert (plan.bm, plan.bn) == (64, bn)
+    assert plan.gx * plan.gy == 128
+    assert plan.nk == -(-K * (2 if dtype == torch.bfloat16 else 1) // 128)
+
+
+@pytest.mark.parametrize("dtype,shape", [
+    (torch.bfloat16, (64, 40, 64)), (torch.bfloat16, (64, 8, 64)),
+    (torch.int8, (64, 48, 64)), (torch.int8, (0, 32, 64)),
+    (torch.int8, (64, 32, 0))])
+def test_probe_gemm_refuses_a_shape_before_launch(dtype, shape):
+    """K must be a whole number of 32-byte slices and M, N positive: the
+    launcher says so, naming the shape, before it looks at the device."""
+    M, K, N = shape
+    with pytest.raises(ValueError, match=rf"\({M}, {K}, {N}\)"):
+        kernels.probe_gemm_plan(M, K, N, dtype)
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match=rf"\({M}, {K}, {N}\)"):
+        kernels.launch_probe_gemm(torch.zeros((M, K), dtype=dtype),
+                                  torch.zeros((N, K), dtype=dtype))
+    assert kernels.LAUNCHES["probe_gemm"] == 0
+
+
+def test_probe_gemm_takes_ragged_m_and_n_and_short_k():
+    for dtype, (M, K, N) in ((torch.bfloat16, (100, 48, 70)),
+                             (torch.bfloat16, (1, 16, 1)),
+                             (torch.int8, (100, 96, 70)),
+                             (torch.int8, (1, 32, 1))):
+        plan = kernels.probe_gemm_plan(M, K, N, dtype)
+        assert plan.gx == -(-M // 64) and plan.gy == -(-N // plan.bn)
+
+
+def test_filter_fit_refuses_what_the_kernel_does_not_take():
+    cfg = BlindConfig()
+    stats, freqs = torch.zeros((3, 5)), torch.zeros(5)
+    for p0 in (torch.zeros((2, 17)), torch.zeros((2, 0))):
+        with pytest.raises(ValueError, match="what the kernel takes"):
+            kernels.launch_filter_fit(stats, freqs, p0, cfg)
+    F = kernels.FIT_MAX_F + 1
+    with pytest.raises(ValueError, match=f"F={F}"):
+        kernels.launch_filter_fit(torch.zeros((3, F)), torch.zeros(F),
+                                  torch.zeros((2, 5)), cfg)
+
+
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Function properties for __internal_slowpath
+    8 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Compiling entry function '_Z3fitILi5EEv' for 'sm_90a'
+ptxas info    : Function properties for _Z3fitILi5EEv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 149 registers, 440 bytes cmem[0]
+ptxas info    : (C7513) Potential Performance Loss: wgmma.mma_async \
+instructions are serialized due to x in the function '_Z4gemmv'
+ptxas info    : Compiling entry function '_Z4gemmv' for 'sm_90a'
+ptxas info    : Function properties for _Z4gemmv
+    64 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 255 registers, 440 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_reads_frames_spills_and_c7513():
+    rep = kernels.ptxas_report(PTXAS_LOG)
+    assert rep == {
+        "_Z3fitILi5EEv": {"registers": 149, "stack": 0, "spill_stores": 0,
+                          "spill_loads": 0, "c7513": 0},
+        "_Z4gemmv": {"registers": 255, "stack": 64, "spill_stores": 4,
+                     "spill_loads": 8, "c7513": 1}}
