@@ -11,21 +11,52 @@
 // any F, T and C run here, and the input gradient is this kernel again on
 // the cotangent with the kernel flipped and its in/out channels swapped.
 //
-// It is K1's tile (conv5x3_tile.cuh, conv5x3_mma.cuh) with the taps made
-// general: the kernel extent and both dilations are runtime values, so the
-// staged halo window is KF dilated input rows per output row and
-// TT + (KT-1)*dt columns, and each kt shift reads that window kt*dt
-// columns further on (an implicit im2col).  bf16 with rows of at least 16
-// positions and at least 16 input channels runs on the tensor cores
-// (mma.sync m16n8k16 through mma_frag.cuh, weights tap-major (KF*KT, N, C));
-// fp32, short rows, few channels and windows too large for shared memory on
-// the tensor-core path run the CUDA-core tile (weights HWIO).
+// Three routes, chosen by the host (kernels.dilated_conv_route, passed in
+// the plan; a route that cannot take the call refuses it, none falls back
+// to another):
+//
+//   tma   bf16 with C and N multiples of 8 (every level shape of the TPU
+//         kernel's table, and its dx): an implicit GEMM on the TMA ring of
+//         probe_gemm_sm90.cuh (its producer and consumer functions, its
+//         128B-swizzled wgmma SS).  The contraction is (tap, 64-channel
+//         chunk).  For each k-step the producer warp asks the TMA for two
+//         A boxes, 64 channels x TT columns x TF rows x 1 item, from a 4-D
+//         tensor map over x (C, T, F, B) at (c0, t0 + (kt-PT)dt, f0 +
+//         (kf-PF)df, b) and (.., f0 + TF + (kf-PF)df, b), and one B box,
+//         64 channels x BN outputs, from a 3-D map over the tap-major pack
+//         (C, N, KF*KT) at (c0, n0, tap).  The TMA zero-fills whatever lies
+//         outside the tensor, negative coordinates included: that is the
+//         'SAME' padding, with no padded copy.  T, F and B are separate
+//         dimensions of the map, so a shift never bleeds into the next row
+//         or item.  Two consumer warpgroups each run four wgmma
+//         m64nBNk16 per k-step on their own A box and the shared B box.
+//         A box holds TT*TF <= 64 positions (kernels.dilated_conv_plan
+//         picks TT, TF to cover F x T with the fewest blocks): rows past
+//         TT*TF of a warpgroup's 64 hold stale bits, whose products land
+//         only in their own accumulator rows, which are never stored.  The
+//         epilogue rounds the fp32 sums once to bf16 in a shared-memory
+//         tile and writes 16 bytes along N, masking ragged F, T and N.
+//         At C = 96 the second chunk is half zero fill (a quarter of that
+//         level's products are wasted).
+//   mma   the older bf16 tensor-core tile (K1's, conv5x3_tile.cuh and
+//         conv5x3_mma.cuh, mma.sync m16n8k16 through mma_frag.cuh, weights
+//         tap-major (KF*KT, N, C)) with the taps made general: the staged
+//         halo window is KF dilated rows per output row and TT + (KT-1)*dt
+//         columns, each kt shift reading it kt*dt columns on.  bf16 with C
+//         or N not a multiple of 8, rows of at least 16 and 16 channels.
+//   simt  the CUDA-core tile (weights HWIO): fp32, and bf16 that neither
+//         tensor-core route takes.
 //
 // Bound on the H100: operation-bound at the model's widths (KF*KT*C
 // multiply-adds per output element against a few bytes moved), like K1.
-// Staging is synchronous; cp.async/TMA double buffering is later work.
+// The tma route rereads each input chunk once per tap from L2 (its box
+// cannot be shifted inside shared memory: a swizzled A descriptor moves in
+// 8-row groups), and each block reads all the weights of its BN outputs.
+#include <string.h>
+
 #include "conv5x3_tile.cuh"
 #include "mma_frag.cuh"
+#include "probe_gemm_sm90.cuh"
 
 namespace babe {
 namespace dconv {
@@ -41,6 +72,18 @@ struct Params {
   int B, F, T, C, N, KF, KT, df, dt;
   int TT, TF, n_tiles;
 };
+
+// The cut of one call, made by the host (kernels.dilated_conv_plan):
+// these fields, all ints, in this order.  The tma route's block (gx, gy,
+// z) owns outputs n0 = (z % n_tiles) * bn .. n0 + bn of item z / n_tiles
+// at the TT x 2TF positions from (f0, t0) = (gy * 2TF, gx * TT), the
+// first TF rows warpgroup 0's, the next TF warpgroup 1's; it walks n_k =
+// KF * KT * nch ring stages (tap outer, 64-channel chunk inner).
+struct Plan {
+  int route, B, F, T, C, N, KF, KT, df, dt;
+  int TT, TF, bn, n_tiles, nch, n_k, stages, stage_bytes, smem, gx, gy, gz;
+};
+constexpr int kRouteSimt = 0, kRouteMma = 1, kRouteTma = 2;
 
 // ------------------------------------------------------- CUDA-core tile
 
@@ -259,6 +302,126 @@ __global__ void __launch_bounds__(frag::kThreads) dconv_mma(Params p) {
   }
 }
 
+// ---------------------------------------------------- the TMA route
+
+constexpr int kTmaThreads = 288;   // two consumer warpgroups, a producer warp
+constexpr int kABox = 64 * 128;    // one warpgroup's A slot: 64 x 128 bytes
+
+// up to 128 outputs a block, two blocks share an SM (a short contraction,
+// as at 64 channels, leaves one block's prologue and epilogue exposed):
+// the ring takes half of the SM's shared memory
+template <int BN>
+__host__ __device__ constexpr int tma_blocks() {
+  return BN <= 128 ? 2 : 1;
+}
+template <int BN>
+__host__ __device__ constexpr int tma_stage_bytes() {
+  return 2 * kABox + BN * 128;
+}
+template <int BN>
+__host__ __device__ constexpr int tma_stages() {
+  return 196608 / tma_blocks<BN>() / tma_stage_bytes<BN>() < 8
+             ? 196608 / tma_blocks<BN>() / tma_stage_bytes<BN>()
+             : 8;
+}
+template <int BN>
+__host__ __device__ constexpr int tma_smem() {  // ring + alignment slack
+  return tma_stages<BN>() * tma_stage_bytes<BN>() + 1024;
+}
+
+template <int BN>
+__global__ void __launch_bounds__(kTmaThreads, tma_blocks<BN>())
+    dconv_tma(const __grid_constant__ CUtensorMap tx,
+              const __grid_constant__ CUtensorMap tw, bf16* y,
+              const Plan p) {
+  using namespace babe::sm90;
+  constexpr int kS = tma_stages<BN>(), kStage = tma_stage_bytes<BN>();
+  extern __shared__ __align__(1024) unsigned char smem_dconv[];
+  __shared__ __align__(8) uint64_t full[kS], empty[kS];
+  const uint32_t base = smem_u32(smem_dconv);
+  const uint32_t ring = (base + 1023u) & ~1023u;
+  const int tid = threadIdx.x;
+  const int b = blockIdx.z / p.n_tiles, n0 = (blockIdx.z % p.n_tiles) * BN;
+  const int t0 = blockIdx.x * p.TT, f0 = blockIdx.y * 2 * p.TF;
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(smem_u32(&full[s]), 1);
+      mbar_init(smem_u32(&empty[s]), 2);  // one arrival per warpgroup
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= 256) {  // the producer warp: one lane issues every copy
+    if (tid == 256) {
+      const CUtensorMap *px = &tx, *pw = &tw;
+      const int PF = (p.KF - 1) / 2, PT = (p.KT - 1) / 2;
+      const uint32_t tx_bytes = 2 * p.TT * p.TF * 128 + BN * 128;
+      gemm90::produce<kS>(
+          p.n_k, ring, kStage, tx_bytes, full, empty,
+          [&](int it, uint32_t dst, uint32_t bar) {
+            const int tap = it / p.nch, c0 = (it - tap * p.nch) * 64;
+            const int kf = tap / p.KT, kt = tap - kf * p.KT;
+            const int t = t0 + (kt - PT) * p.dt, f = f0 + (kf - PF) * p.df;
+            tma_load_4d(dst, px, c0, t, f, b, bar);
+            tma_load_4d(dst + kABox, px, c0, t, f + p.TF, b, bar);
+            tma_load_3d(dst + 2 * kABox, pw, c0, n0, tap, bar);
+          });
+    }
+    return;
+  }
+
+  const int wg = tid >> 7;
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  gemm90::consume<kS>(0, p.n_k, ring, kStage, full, empty, (tid & 127) == 0,
+                      acc, [&](uint32_t slot) {
+                        const uint32_t sa = slot + wg * kABox;
+                        const uint32_t sb = slot + 2 * kABox;
+#pragma unroll
+                        for (int k = 0; k < 4; ++k)
+                          gemm90::mma<BN>(acc, gemm90::desc_sw128(sa + 32 * k),
+                                          gemm90::desc_sw128(sb + 32 * k));
+                      });
+  bar_sync(1, 256);  // both warpgroups' products are done: the ring is free
+
+  // accumulator register n8*4 + hr*2 + e (warp row gq + 8hr, column 8 n8 +
+  // 2q + e) -> a bf16 tile of 128 rows (warpgroup w's from 64w) x BN
+  constexpr int NP = BN + 8;  // values per tile row
+  bf16* tile = reinterpret_cast<bf16*>(smem_dconv + (ring - base));
+  {
+    const int lane = tid & 31, w4 = (tid >> 5) & 3;
+    const int gq = lane >> 2, q = lane & 3;
+    const int r0 = wg * 64 + w4 * 16 + gq;
+#pragma unroll
+    for (int n8 = 0; n8 < BN / 8; ++n8)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr)
+        *reinterpret_cast<__nv_bfloat162*>(tile + (r0 + 8 * hr) * NP +
+                                           n8 * 8 + 2 * q) =
+            __floats2bfloat162_rn(acc[n8 * 4 + hr * 2],
+                                  acc[n8 * 4 + hr * 2 + 1]);
+  }
+  bar_sync(1, 256);
+  // 16-byte units (tile row, 8 outputs); row r of warpgroup r / 64 is
+  // position (f0 + (r / 64) TF + (r % 64) / TT, t0 + (r % 64) % TT) when r
+  // % 64 < TT * TF
+  constexpr int R = BN / 8;
+  const int live = p.TT * p.TF;
+  for (int u = tid; u < 128 * R; u += 256) {
+    const int row = u / R, cg = u - row * R;
+    const int rr = row & 63, n = n0 + cg * 8;
+    if (rr >= live || n >= p.N) continue;
+    const int f = f0 + (row >> 6) * p.TF + rr / p.TT, t = t0 + rr % p.TT;
+    if (f >= p.F || t >= p.T) continue;
+    *reinterpret_cast<uint4*>(y + (((size_t)b * p.F + f) * p.T + t) * p.N +
+                              n) =
+        *reinterpret_cast<const uint4*>(tile + row * NP + cg * 8);
+  }
+}
+
 // let a kernel take up to kMaxSmem of dynamic shared memory (once per
 // kernel: each caller keeps its own flag)
 template <typename K>
@@ -288,6 +451,8 @@ int launch_simt(Params p, cudaStream_t st) {
 }
 
 int launch_mma(Params p, cudaStream_t st) {
+  if (p.T < 16 || p.C < 16 || mma_smem(p, 16) > (size_t)kMaxSmem)
+    return (int)cudaErrorInvalidConfiguration;
   int TT = 16;
   while (TT < p.T && TT < kMB) TT <<= 1;
   p.TT = TT;
@@ -300,19 +465,80 @@ int launch_mma(Params p, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+// the tensor maps are encoded per call on the host and passed as
+// __grid_constant__ parameters, so a CUDA graph can capture the launch
+template <int BN>
+int launch_tma(const Params& p, const Plan& k, cudaStream_t st) {
+  if (k.stages != tma_stages<BN>() || k.smem != tma_smem<BN>() ||
+      k.stage_bytes != tma_stage_bytes<BN>())
+    return (int)cudaErrorInvalidValue;
+  static bool configured = false;  // its barriers are static: ask for
+  if (!configured) {                // only the dynamic bytes it takes
+    const cudaError_t err = cudaFuncSetAttribute(
+        dconv_tma<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        tma_smem<BN>());
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  const cuuint64_t xd[4] = {(cuuint64_t)p.C, (cuuint64_t)p.T,
+                            (cuuint64_t)p.F, (cuuint64_t)p.B};
+  const cuuint64_t xs[3] = {(cuuint64_t)p.C * 2, (cuuint64_t)p.T * p.C * 2,
+                            (cuuint64_t)p.F * p.T * p.C * 2};
+  const cuuint32_t xb[4] = {64, (cuuint32_t)k.TT, (cuuint32_t)k.TF, 1};
+  const cuuint64_t wd[3] = {(cuuint64_t)p.C, (cuuint64_t)p.N,
+                            (cuuint64_t)p.KF * p.KT};
+  const cuuint64_t ws[2] = {(cuuint64_t)p.C * 2, (cuuint64_t)p.N * p.C * 2};
+  const cuuint32_t wb[3] = {64, (cuuint32_t)BN, 1};
+  CUtensorMap tx, tw;
+  if (!gemm90::tiled_map(&tx, p.x, 4, xd, xs, xb, 2) ||
+      !gemm90::tiled_map(&tw, p.wt, 3, wd, ws, wb, 2))
+    return (int)cudaErrorInvalidValue;
+  dconv_tma<BN><<<dim3(k.gx, k.gy, k.gz), kTmaThreads, k.smem, st>>>(
+      tx, tw, static_cast<bf16*>(p.y), k);
+  return (int)cudaGetLastError();
+}
+
+int launch_tma_route(const Params& p, const Plan& k, cudaStream_t st) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p.x) |
+                      reinterpret_cast<uintptr_t>(p.wt) |
+                      reinterpret_cast<uintptr_t>(p.y);
+  if (p.C % 8 != 0 || p.N % 8 != 0 || a % 16 != 0 || k.TT < 1 || k.TF < 1 ||
+      k.TT * k.TF > 64 || k.nch != (p.C + 63) / 64 ||
+      k.n_k != p.KF * p.KT * k.nch || k.n_tiles != (p.N + k.bn - 1) / k.bn ||
+      k.gz != p.B * k.n_tiles || (long)k.gx * k.TT < p.T ||
+      (long)k.gy * 2 * k.TF < p.F)
+    return (int)cudaErrorInvalidValue;
+  switch (k.bn) {
+    case 64: return launch_tma<64>(p, k, st);
+    case 96: return launch_tma<96>(p, k, st);
+    case 128: return launch_tma<128>(p, k, st);
+    case 256: return launch_tma<256>(p, k, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace dconv
 }  // namespace babe
 
-// dtype 0 = fp32, 1 = bf16.  Returns the launch status (cudaSuccess = 0);
-// cudaErrorInvalidValue for a kernel extent or type it does not take,
-// cudaErrorInvalidConfiguration for a window too large for shared memory.
+// dtype 0 = fp32, 1 = bf16; meta the call's Plan (kernels.dilated_conv_plan),
+// whose route the call takes.  Returns the launch status (cudaSuccess = 0):
+// cudaErrorInvalidValue for a kernel extent, type, plan or alignment the
+// route does not take, cudaErrorInvalidConfiguration for a window too large
+// for shared memory or rows or channels too few for the mma tile.
 extern "C" int babe_dilated_conv(const void* x, const void* w, const void* wt,
                                  void* y, int B, int F, int T, int C, int N,
                                  int KF, int KT, int df, int dt, int dtype,
-                                 void* stream) {
+                                 const int* meta, int n_meta, void* stream) {
   using namespace babe::dconv;
   if (KF < 1 || KF > 7 || KT < 1 || KT > 7 || KF % 2 == 0 || KT % 2 == 0 ||
       df < 1 || dt < 1)
+    return (int)cudaErrorInvalidValue;
+  Plan k;
+  if (n_meta != (int)(sizeof(Plan) / sizeof(int)))
+    return (int)cudaErrorInvalidValue;
+  memcpy(&k, meta, sizeof(k));
+  if (k.B != B || k.F != F || k.T != T || k.C != C || k.N != N ||
+      k.KF != KF || k.KT != KT || k.df != df || k.dt != dt)
     return (int)cudaErrorInvalidValue;
   if (B <= 0 || F <= 0 || T <= 0 || N <= 0) return 0;
   Params p{};
@@ -330,9 +556,12 @@ extern "C" int babe_dilated_conv(const void* x, const void* w, const void* wt,
   p.df = df;
   p.dt = dt;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_simt<float>(p, st);
+  if (dtype == 0 && k.route == kRouteSimt) return launch_simt<float>(p, st);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
-  if (T >= 16 && C >= 16 && mma_smem(p, 16) <= (size_t)kMaxSmem)
-    return launch_mma(p, st);
-  return launch_simt<bf16>(p, st);
+  switch (k.route) {
+    case kRouteSimt: return launch_simt<bf16>(p, st);
+    case kRouteMma: return launch_mma(p, st);
+    case kRouteTma: return launch_tma_route(p, k, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,6 +1,6 @@
 // Warp-level tensor-core fragments shared by the bf16 stage tile of K1 and
-// K2 (conv5x3_mma.cuh), K3 (fused_stage_int8.cu) and the int8 probe
-// (probe_int8.cu).
+// K2 (conv5x3_mma.cuh), K3's tile (fused_stage_int8.cu), K4's mma tile
+// (dilated_conv.cu) and the weight-gradient GEMM (conv_dw.cu).
 //
 // Operands are staged in shared memory as rows of 32 bytes of the
 // contraction (32 int8 or 16 bf16 values), padded to 48 bytes (kW = 12

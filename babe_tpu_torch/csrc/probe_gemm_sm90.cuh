@@ -21,9 +21,10 @@
 // a K step adds 32 bytes to the start address), commits, waits for the
 // previous stage's products and frees that stage's slot.  Between the
 // fence and the wait nothing touches the accumulator, so ptxas keeps the
-// products in flight.  The TMA zero-fills rows past M or N and columns
-// past K, so ragged M and N cost nothing; K is a whole number of 32-byte
-// slices.
+// products in flight.  The ring's two sides are device functions
+// (produce, consume) that K4's TMA route (dilated_conv.cu) runs too.  The
+// TMA zero-fills rows past M or N and columns past K, so ragged M and N
+// cost nothing; K is a whole number of 32-byte slices.
 //
 // Repetitions: each one streams its operands from device memory (L2)
 // through the ring again and runs the whole product; its accumulator
@@ -64,9 +65,10 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
 }
 
 // wgmma with both operands in shared memory, one function per width BN:
-// wgmma_ss m64nBNk16 bf16 -> fp32, wgmma_ss_s8 m64nBNk32 s8 -> s32; the
-// operand lists follow wgmma_rs.cuh's pattern (accumulator, A and B
-// descriptors, the accumulate predicate's source)
+// wgmma_ss m64nBNk16 bf16 -> fp32 (32 and 64 for P1, 64, 96, 128 and 256
+// for K4's TMA route), wgmma_ss_s8 m64nBNk32 s8 -> s32 (P1); the operand
+// lists follow wgmma_rs.cuh's pattern (accumulator, A and B descriptors,
+// the accumulate predicate's source)
 template <int N>
 __device__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b);
 template <int N>
@@ -107,6 +109,105 @@ __device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<96>(float (&d)[48], uint64_t a,
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14,"
+      " %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
+      " %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40,"
+      " %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14,"
+      " %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
+      " %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40,"
+      " %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53,"
+      " %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<256>(float (&d)[128], uint64_t a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14,"
+      " %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
+      " %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40,"
+      " %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53,"
+      " %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66,"
+      " %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92,"
+      " %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104,"
+      " %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115,"
+      " %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126,"
+      " %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]),
+        "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]),
+        "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
+        "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]),
+        "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]),
+        "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]),
+        "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]),
+        "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
       : "l"(a), "l"(b), "r"(1));
 }
 
@@ -159,6 +260,59 @@ __device__ __forceinline__ void mma(int32_t (&d)[N / 2], uint64_t a,
   wgmma_ss_s8<N>(d, a, b);
 }
 
+// The TMA ring's two sides, which P1 (gemm_tma below) and K4's TMA route
+// (dilated_conv.cu) share.  Slot s of kStages holds one ring stage of
+// stage_bytes at ring + s * stage_bytes; its full barrier completes when
+// the stage's copies have landed (the producer's arrival and the TMA's tx
+// bytes), its empty barrier when every consumer warpgroup has freed it
+// (initialised with one arrival per consumer warpgroup).
+
+// the producer: one thread walks ring stages 0 .. total - 1, waits for
+// each stage's slot to be free, announces tx bytes on its full barrier and
+// calls load(it, slot address, full barrier) to issue the stage's copies
+template <int kStages, typename Load>
+__device__ __forceinline__ void produce(int total, uint32_t ring,
+                                        int stage_bytes, uint32_t tx,
+                                        uint64_t* full, uint64_t* empty,
+                                        Load&& load) {
+  for (int it = 0; it < total; ++it) {
+    const int s = it % kStages;
+    const uint32_t bar = smem_u32(&full[s]);
+    mbar_wait(smem_u32(&empty[s]), ((it / kStages) & 1) ^ 1);
+    mbar_expect_tx(bar, tx);
+    load(it, ring + s * stage_bytes, bar);
+  }
+}
+
+// a consumer warpgroup's pass over ring stages it0 .. it0 + n - 1: it
+// waits for each stage's copies, calls issue(slot address) to issue the
+// stage's products and commits them; they stay in flight through the next
+// stage's wait, and the stage is freed (one arrival, by the `leader`
+// thread) once they are done.  Between the fence and the wait nothing
+// touches the accumulator, so ptxas keeps the products in flight.  Returns
+// with every product done and every stage of the pass freed.
+template <int kStages, typename Acc, int K, typename Issue>
+__device__ __forceinline__ void consume(int it0, int n, uint32_t ring,
+                                        int stage_bytes, uint64_t* full,
+                                        uint64_t* empty, bool leader,
+                                        Acc (&acc)[K], Issue&& issue) {
+  for (int k = 0; k < n; ++k) {
+    const int it = it0 + k, s = it % kStages;
+    mbar_wait(smem_u32(&full[s]), (it / kStages) & 1);
+    fence_acc(acc);
+    wg_fence();
+    issue(ring + s * stage_bytes);
+    wg_commit();
+    wg_wait<1>();  // the previous stage's products are done
+    fence_acc(acc);
+    if (k > 0 && leader) mbar_arrive(smem_u32(&empty[(it - 1) % kStages]));
+  }
+  wg_wait<0>();
+  fence_acc(acc);
+  if (n > 0 && leader)
+    mbar_arrive(smem_u32(&empty[(it0 + n - 1) % kStages]));
+}
+
 template <int BN>
 __host__ __device__ constexpr int stage_bytes() {
   return (kBM + BN) * kBK;
@@ -195,43 +349,29 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
 
   if (tid >= 128) {  // the producer warp: one lane issues every copy
-    if (tid == 128) {
-      for (int it = 0; it < total; ++it) {
-        const int s = it % kStages;
-        const uint32_t dst = ring + s * kStage, bar = smem_u32(&full[s]);
-        mbar_wait(smem_u32(&empty[s]), ((it / kStages) & 1) ^ 1);
-        mbar_expect_tx(bar, kStage);
-        const int kc = (it % nk) * kElems;
-        tma_load_2d(dst, &ta, kc, m0, bar);
-        tma_load_2d(dst + kA, &tb, kc, n0, bar);
-      }
-    }
+    const CUtensorMap *pa = &ta, *pb = &tb;
+    if (tid == 128)
+      produce<kStages>(total, ring, kStage, kStage, full, empty,
+                       [&](int it, uint32_t dst, uint32_t bar) {
+                         const int kc = (it % nk) * kElems;
+                         tma_load_2d(dst, pa, kc, m0, bar);
+                         tma_load_2d(dst + kA, pb, kc, n0, bar);
+                       });
     return;
   }
 
   Acc acc[BN / 2], carry = 0;
-  int it = 0;
   for (int rep = 0; rep < reps; ++rep) {
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[i] = carry;
-    for (int kb = 0; kb < nk; ++kb, ++it) {
-      const int s = it % kStages;
-      mbar_wait(smem_u32(&full[s]), (it / kStages) & 1);
-      const uint32_t sa = ring + s * kStage, sb = sa + kA;
-      fence_acc(acc);
-      wg_fence();
+    consume<kStages>(rep * nk, nk, ring, kStage, full, empty, tid == 0, acc,
+                     [&](uint32_t sa) {
+                       const uint32_t sb = sa + kA;
 #pragma unroll
-      for (int k = 0; k < kBK / 32; ++k)
-        mma<BN>(acc, desc_sw128(sa + 32 * k), desc_sw128(sb + 32 * k));
-      wg_commit();
-      wg_wait<1>();  // the previous stage's products are done
-      fence_acc(acc);
-      if (kb > 0 && tid == 0)
-        mbar_arrive(smem_u32(&empty[(it - 1) % kStages]));
-    }
-    wg_wait<0>();
-    fence_acc(acc);
-    if (tid == 0) mbar_arrive(smem_u32(&empty[(it - 1) % kStages]));
+                       for (int k = 0; k < kBK / 32; ++k)
+                         mma<BN>(acc, desc_sw128(sa + 32 * k),
+                                 desc_sw128(sb + 32 * k));
+                     });
     carry = acc[0] * (Acc)dep;
   }
 
@@ -284,23 +424,35 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// the tensor map of a (rows, K) row-major operand of `elem`-byte values,
-// boxes of box_rows rows x kBK bytes, 128B swizzle, zero fill outside
-inline bool operand_map(CUtensorMap* map, const void* ptr, int rows, int K,
-                        int elem, int box_rows) {
+// the tensor map of a row-major tensor of `elem`-byte values (bf16 or
+// 8-bit) of `rank` dimensions `dims` (innermost first; `strides` the
+// bytes between consecutive indices of dimensions 1 .. rank - 1), boxes of
+// `box` values with an innermost side of kBK bytes, 128B swizzle; the TMA
+// fills every element outside the tensor, negative coordinates included,
+// with zero
+inline bool tiled_map(CUtensorMap* map, const void* ptr, int rank,
+                      const cuuint64_t* dims, const cuuint64_t* strides,
+                      const cuuint32_t* box, int elem) {
   EncodeTiled fn = encoder();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)K * elem};
-  const cuuint32_t box[2] = {(cuuint32_t)(kBK / elem), (cuuint32_t)box_rows};
-  const cuuint32_t unit[2] = {1, 1};
+  if (fn == nullptr || rank < 1 || rank > 5) return false;
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
   return fn(map,
             elem == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                       : CU_TENSOR_MAP_DATA_TYPE_UINT8,
-            2, const_cast<void*>(ptr), dims, strides, box, unit,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            (cuuint32_t)rank, const_cast<void*>(ptr), dims, strides, box,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the tensor map of a (rows, K) row-major operand, boxes of box_rows rows
+// x kBK bytes
+inline bool operand_map(CUtensorMap* map, const void* ptr, int rows, int K,
+                        int elem, int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)K * elem};
+  const cuuint32_t box[2] = {(cuuint32_t)(kBK / elem), (cuuint32_t)box_rows};
+  return tiled_map(map, ptr, 2, dims, strides, box, elem);
 }
 
 template <typename E, int BN>

@@ -14,184 +14,99 @@
 //      Staged rows h (BF + 4d, BT + 16, C) -> out (BF*BT, C) with
 //      out[f*BT + t, n] = sum_{kf, kt, c} h[f + kf*d, 7 + kt + t, c] *
 //      wt[kf*3 + kt, n, c]: the 5 dilated rows of each output row and the
-//      3 shifted columns are the 15 patches of the implicit GEMM, staged in
-//      shared memory, then 5 x 3 mma k-steps per 32-byte chunk.  The whole
-//      product is repeated `reps` times; each repetition's staging adds
-//      (first accumulator of the block) * dep to every staged value, so it
-//      depends on the previous repetition's result and the compiler can
-//      hoist neither the staging nor the products.  The caller passes
-//      dep = 0, so every repetition computes the same product.  Replaces
+//      3 shifted columns are the 15 patches of the implicit GEMM.  Replaces
 //      tools/probe_pallas_int8.py::make_stage, whose repetitions feed the
-//      accumulator back into the staged rows in the same way.
+//      accumulator back into the staged rows.
 //
-// P2 keeps the mma.sync warp tile of mma_frag.cuh (128 positions x 64
-// channels per block of 8 warps), which the main path's stages no longer
-// run (K2 and K3 run wgmma on stage_mma_sm90.cuh): its ratio is that of
-// the older tile.  Bound: operations (2*15*C*reps operations per
-// output element against a few bytes); P1's, bytes (probe_gemm_sm90.cuh).
-#include "mma_frag.cuh"
+// P2 runs the stage engine's own main loop (stage_mma_sm90.cuh,
+// conv_loop): its conv evaluated on the interior window of an input of
+// (F, T) = (BF + 4d, BT + 16).  h[f + kf*d, 7 + kt + t] is the input at
+// row (f + 2d) + (kf - 2)d and column (t + 8) + (kt - 1), so the output
+// window starts at (2d, 8) and is BF x BT; no read reaches the padding.
+// The cp.async ring, ldmatrix A, one wgmma m64nNTk16 bf16 or m64nNTk32 s8
+// per tap from the engine's weight pack (kernels.stage_tap_weights):
+// K3's core, so the probe's int8:bf16 ratio is the engine's.  The cut
+// (kernels.probe_stage_plan) is one warpgroup of 64 positions per block
+// and NT = 32 or 64 output channels, about a wave of the card's SMs at
+// both probe shapes.  Each repetition streams its operands through the
+// ring again, its accumulator starting at (the previous repetition's
+// first accumulator) * dep; the caller passes dep = 0, so the result is
+// one product while no repetition can be dropped.  The epilogue stores the
+// raw accumulator: fp32 for bf16 products, int32 for int8.
+//
+// Bound: operations (2*15*C operations per output element and repetition
+// against a few bytes); P1's, bytes (probe_gemm_sm90.cuh).
 #include "probe_gemm_sm90.cuh"
+#include "stage_mma_sm90.cuh"
 
 namespace babe {
 namespace probe {
 
-using frag::kMB;
-using frag::kNB;
-using frag::kThreads;
-using frag::kW;
+using sm90::StagePlan;
 
-// P2's output: fp32 (bf16 products) or int32 (int8 products)
-__device__ __forceinline__ void store_out(void* out, size_t i, float v) {
-  static_cast<float*>(out)[i] = v;
+__device__ __forceinline__ void store_pair(float* o, float a, float b) {
+  *reinterpret_cast<float2*>(o) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(int32_t* o, int32_t a,
+                                           int32_t b) {
+  *reinterpret_cast<int2*>(o) = make_int2(a, b);
 }
 
-__device__ __forceinline__ void store_out(void* out, size_t i, int v) {
-  static_cast<int*>(out)[i] = v;
-}
-
-// each staged byte (int8) or half-word (bf16) plus `carry`
-__device__ __forceinline__ uint32_t add_carry(uint32_t w, int carry, int8_t) {
-  uint32_t o = 0;
+// P2: block (gx, gy, z) owns window positions (gy*TF + q / TT, gx*TT + q %
+// TT), q < 64, and output channels z*NT .. z*NT + NT
+template <int NT, typename E>
+__global__ void __launch_bounds__(128, 1)
+    stage_probe(const StagePlan p, const void* h, const void* wpk,
+                void* out, int BF, int BT, int reps, int dep) {
+  using Acc =
+      typename std::conditional<std::is_same<E, int8_t>::value, int32_t,
+                                float>::type;
+  extern __shared__ __align__(128) unsigned char smem_probe[];
+  const int n0 = blockIdx.z * NT;
+  const int fb = blockIdx.y * p.TF, tb = blockIdx.x * p.TT;
+  Acc acc[NT / 2], carry = 0;
+  for (int rep = 0; rep < reps; ++rep) {
 #pragma unroll
-  for (int k = 0; k < 4; ++k)
-    o |= (uint32_t)(uint8_t)(int8_t)((int8_t)(w >> (8 * k)) + carry)
-         << (8 * k);
-  return o;
-}
-
-__device__ __forceinline__ uint32_t add_carry(uint32_t w, int carry,
-                                              __nv_bfloat16) {
-  __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&w);
-  v.x = __float2bfloat16(__bfloat162float(v.x) + (float)carry);
-  v.y = __float2bfloat16(__bfloat162float(v.y) + (float)carry);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-struct StageParams {
-  const void* h;   // (nrows, BTw, C)
-  const void* wt;  // (15, C, C) tap-major
-  void* out;       // (BF*BT, C)
-  int nrows, BTw, C, BF, BT, d, reps, dep;
-  int TT, TF, vec;
-};
-
-inline size_t stage_smem(int TT) {
-  const int TF = kMB / TT;
-  return (size_t)(TF * 5 * (TT + 2) + 15 * kNB) * kW * 4;
-}
-
-// P2: 128 output positions (TF rows x TT columns) x 64 channels per block
-template <typename E, typename Acc>
-__global__ void __launch_bounds__(kThreads) stage(StageParams p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int carry;
-  const int TT = p.TT, TF = p.TF, TW = TT + 2, nrow = TF * 5, C = p.C;
-  uint32_t* xs = reinterpret_cast<uint32_t*>(smem);  // [nrow][TW][kW]
-  uint32_t* ws = xs + nrow * TW * kW;                 // [15][kNB][kW]
-  const E* h = static_cast<const E*>(p.h);
-  const E* wt = static_cast<const E*>(p.wt);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, q = lane & 3, wm = warp & 3, wn = warp >> 2;
-  const int t0 = blockIdx.x * TT, f0 = blockIdx.y * TF, n0 = blockIdx.z * kNB;
-  constexpr int kPer = 4 / sizeof(E);
-  int fi[2], tl[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int m = wm * 32 + i * 16;
-    fi[i] = m / TT;
-    tl[i] = m % TT;
+    for (int i = 0; i < NT / 2; ++i) acc[i] = carry;
+    sm90::conv_loop<NT, (int)sizeof(E), false, 1, Acc>(
+        p, static_cast<const unsigned char*>(h),
+        static_cast<const unsigned char*>(wpk), 0, 2 * p.d + fb, 8 + tb, n0,
+        sm90::smem_u32(smem_probe), acc);
+    carry = acc[0] * (Acc)dep;
   }
-  if (tid == 0) carry = 0;
-  __syncthreads();
-
-  Acc acc[2][4][4];
-  for (int rep = 0; rep < p.reps; ++rep) {
-    frag::zero(acc);
-    const int cr = carry;
-    for (int c0 = 0; c0 < C; c0 += 8 * kPer) {
-      // the 15 patches: staged row r = fr*5 + kf is h row f0+fr + kf*d,
-      // column col is h column t0 + 7 + col
-      for (int u = tid; u < nrow * TW * 8; u += kThreads) {
-        const int hw = u & 7;
-        const int col = (u >> 3) % TW;
-        const int r = (u >> 3) / TW;
-        const int f = f0 + r / 5;
-        const int hrow = f + (r % 5) * p.d;
-        const int hcol = t0 + 7 + col;
-        const int cb = c0 + hw * kPer;
-        uint32_t v = 0;
-        if (f < p.BF && hrow < p.nrows && hcol < p.BTw && cb < C)
-          v = add_carry(
-              frag::load_word(h + ((size_t)hrow * p.BTw + hcol) * C + cb,
-                              (C - cb) * (int)sizeof(E), p.vec != 0),
-              cr, E());
-        xs[(r * TW + col) * kW + hw] = v;
-      }
-      for (int u = tid; u < 15 * kNB * 8; u += kThreads) {
-        const int hw = u & 7;
-        const int n = (u >> 3) % kNB;
-        const int tap = (u >> 3) / kNB;
-        const int nn = n0 + n, cb = c0 + hw * kPer;
-        uint32_t v = 0;
-        if (nn < C && cb < C)
-          v = frag::load_word(wt + ((size_t)tap * C + nn) * C + cb,
-                              (C - cb) * (int)sizeof(E), p.vec != 0);
-        ws[(tap * kNB + n) * kW + hw] = v;
-      }
-      __syncthreads();
+  // accumulator register n8*4 + hr*2 + e: position w4*16 + gq + 8hr,
+  // channel n0 + 8 n8 + 2q + e
+  const int lane = threadIdx.x & 31, w4 = threadIdx.x >> 5;
+  const int gq = lane >> 2, q = lane & 3;
 #pragma unroll
-      for (int kf = 0; kf < 5; ++kf)
+  for (int hr = 0; hr < 2; ++hr) {
+    const int pos = w4 * 16 + gq + 8 * hr;
+    const int f = fb + (pos >> p.tt_log2), t = tb + (pos & (p.TT - 1));
+    if (f >= BF || t >= BT) continue;
+    Acc* o = static_cast<Acc*>(out) + ((size_t)f * BT + t) * p.C + n0 + 2 * q;
 #pragma unroll
-        for (int kt = 0; kt < 3; ++kt)
-          frag::warp_mma(
-              acc, xs + ((fi[0] * 5 + kf) * TW + tl[0] + g + kt) * kW + q,
-              xs + ((fi[1] * 5 + kf) * TW + tl[1] + g + kt) * kW + q,
-              ws + ((kf * 3 + kt) * kNB + wn * 32 + g) * kW + q);
-      __syncthreads();
-    }
-    if (tid == 0) carry = (int)acc[0][0][0] * p.dep;
-    __syncthreads();
+    for (int n8 = 0; n8 < NT / 8; ++n8)
+      store_pair(o + 8 * n8, acc[n8 * 4 + hr * 2], acc[n8 * 4 + hr * 2 + 1]);
   }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int f = f0 + fi[i];
-          const int t = t0 + tl[i] + g + 8 * hr;
-          const int n = n0 + wn * 32 + j * 8 + 2 * q + e;
-          if (f < p.BF && t < p.BT && n < C)
-            store_out(p.out, ((size_t)f * p.BT + t) * C + n,
-                      acc[i][j][hr * 2 + e]);
-        }
 }
 
-template <typename E, typename Acc>
-int launch_stage(StageParams p, cudaStream_t stream) {
-  if (p.BF <= 0 || p.BT <= 0 || p.C <= 0) return 0;
-  int TT = 16;
-  while (TT < p.BT && TT < kMB) TT <<= 1;
-  p.TT = TT;
-  p.TF = kMB / TT;
+template <int NT, typename E>
+int launch_stage(const StagePlan& p, const void* h, const void* wpk,
+                 void* out, int BF, int BT, int reps, int dep,
+                 cudaStream_t st) {
   static bool configured = false;
+  if (p.ring_bytes != sm90::kStages * p.stage_bytes || p.smem < p.ring_bytes)
+    return (int)cudaErrorInvalidValue;
   if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        stage<E, Acc>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)stage_smem(16));
+    const cudaError_t err = cudaFuncSetAttribute(
+        stage_probe<NT, E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        232448);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  dim3 grid((p.BT + TT - 1) / TT, (p.BF + p.TF - 1) / p.TF,
-            (p.C + kNB - 1) / kNB);
-  stage<E, Acc><<<grid, kThreads, stage_smem(TT), stream>>>(p);
+  stage_probe<NT, E><<<dim3(p.gx, p.gy, p.gz), 128, p.smem, st>>>(
+      p, h, wpk, out, BF, BT, reps, dep);
   return (int)cudaGetLastError();
-}
-
-inline bool aligned4(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 4 == 0;
 }
 
 }  // namespace probe
@@ -220,31 +135,38 @@ extern "C" int babe_probe_gemm(const void* a, const void* bt, void* out,
                   : launch<int8_t, 64>(a, bt, out, M, K, N, reps, dep, st);
 }
 
-extern "C" int babe_probe_stage(const void* h, const void* wt, void* out,
-                                int nrows, int BTw, int C, int BF, int BT,
-                                int d, int reps, int dep, int dtype,
-                                void* stream) {
+// P2 with its cut `meta` (kernels.probe_stage_plan: a StagePlan of mode
+// kModeProbe), checked against the shape; wpk is the engine's pack of the
+// tap-major wt (kernels.stage_tap_weights).  dtype: 1 = bf16, 2 = int8.
+extern "C" int babe_probe_stage(const void* h, const void* wpk, void* out,
+                                const int* meta, int n_meta, int nrows,
+                                int BTw, int C, int BF, int BT, int d,
+                                int reps, int dep, int dtype, void* stream) {
   using namespace babe::probe;
-  StageParams p{};
-  p.h = h;
-  p.wt = wt;
-  p.out = out;
-  p.nrows = nrows;
-  p.BTw = BTw;
-  p.C = C;
-  p.BF = BF;
-  p.BT = BT;
-  p.d = d;
-  p.reps = reps;
-  p.dep = dep;
+  using babe::sm90::kModeProbe;
+  StagePlan p;
+  if (!babe::sm90::read_plan(p, meta, n_meta, 1, nrows, BTw, C, d) ||
+      p.route != 1 || p.mode != kModeProbe || nrows < BF + 4 * d ||
+      BTw != BT + 16 || (dtype != 1 && dtype != 2) ||
+      p.n_it != 5 * C * (dtype == 1 ? 2 : 1) / 32 || p.splits < 1 ||
+      p.gz != p.splits || (long)p.gx * p.TT < BT || (long)p.gy * p.TF < BF)
+    return (int)cudaErrorInvalidValue;
+  if (BF <= 0 || BT <= 0 || reps <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int NT = C / p.splits;
+  if (NT * p.splits != C) return (int)cudaErrorInvalidValue;
   if (dtype == 1) {
-    p.vec = C % 2 == 0 && aligned4(h) && aligned4(wt);
-    return launch_stage<__nv_bfloat16, float>(p, st);
-  }
-  if (dtype == 2) {
-    p.vec = C % 4 == 0 && aligned4(h) && aligned4(wt);
-    return launch_stage<int8_t, int>(p, st);
+    if (NT == 32)
+      return launch_stage<32, __nv_bfloat16>(p, h, wpk, out, BF, BT, reps,
+                                             dep, st);
+    if (NT == 64)
+      return launch_stage<64, __nv_bfloat16>(p, h, wpk, out, BF, BT, reps,
+                                             dep, st);
+  } else {
+    if (NT == 32)
+      return launch_stage<32, int8_t>(p, h, wpk, out, BF, BT, reps, dep, st);
+    if (NT == 64)
+      return launch_stage<64, int8_t>(p, h, wpk, out, BF, BT, reps, dep, st);
   }
   return (int)cudaErrorInvalidValue;
 }

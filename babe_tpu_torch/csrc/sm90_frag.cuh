@@ -1,10 +1,11 @@
 // Shared-memory staging, fragment loads and wgmma synchronisation of the
-// Hopper kernels written after mma_frag.cuh (which P2 and the tiles keep as
-// it is): 16-byte cp.async with zero fill, its groups, the fence that hands
+// Hopper kernels written after mma_frag.cuh (which the tiles keep as it
+// is): 16-byte cp.async with zero fill, its groups, the fence that hands
 // shared memory written by threads to wgmma, ldmatrix, wgmma's fence,
-// commit and wait, mbarriers and the TMA's 2-D tile load.  Used by
-// stage_mma_sm90.cuh (the stage engine), conv5x3_narrow.cuh (K1's narrow
-// routes) and probe_gemm_sm90.cuh (P1).
+// commit and wait, mbarriers, named barriers and the TMA's 2-, 3- and 4-D
+// tile loads.  Used by stage_mma_sm90.cuh (the stage engine, K2, K3 and
+// P2), conv5x3_narrow.cuh (K1's narrow routes), probe_gemm_sm90.cuh (P1)
+// and dilated_conv.cu (K4's TMA route).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -124,6 +125,34 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map,
       "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
       : "memory");
+}
+
+// the 3-D and 4-D forms (coordinates innermost first), for K4's TMA route
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map,
+                                            int c0, int c1, int c2,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
+                                            int c0, int c1, int c2, int c3,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// a barrier among `count` threads of the block (named barrier `id`, 1..15;
+// 0 is __syncthreads'), for when some warps have left the kernel
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 }  // namespace sm90

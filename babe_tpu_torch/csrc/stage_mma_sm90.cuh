@@ -62,6 +62,11 @@
 // and int8 forms stage, load and describe the same fragments (a 32-byte k
 // step, 16-byte halves), so one loop serves both.
 //
+// The main loop is one device function, conv_loop, which the int8
+// probe's P2 (probe_int8.cu) runs too: there a block is one warpgroup of
+// 64 positions and NT = 32 or 64 channels (kernels.probe_stage_plan), so
+// its int8:bf16 ratio is this loop's.
+//
 // Epilogue: the accumulators go through shared memory (bf16 c, or fp32
 // float(acc) for K3), so every read of x (and of the backward's g_y, y,
 // c) and every write of y, c and dx is 16 bytes along C; the per-channel
@@ -88,6 +93,7 @@ namespace sm90 {
 
 using bf16 = __nv_bfloat16;
 constexpr int kModeFwd = 0, kModeBwd = 1, kModeI8 = 2;
+constexpr int kModeProbe = 3;  // P2's plans (probe_int8.cu): the loop alone
 constexpr int kKB = 32;        // contraction bytes per ring stage (a k-step)
 constexpr int kPxB = 48;       // bytes per staged window pixel (32 + pad)
 constexpr int kStages = 5;     // the cp.async ring
@@ -184,57 +190,32 @@ struct Units {
   int ch[kMaxUnits];     // its byte offset in the chunk (0 or 16)
 };
 
-// Up to 128 channels a tile, two blocks share an SM (their rings fit its
-// shared memory): the register budget of 128 a thread keeps them so.
-template <int NT, int MODE>
-__global__ void __launch_bounds__(256, NT <= 128 ? 2 : 1)
-    stage_sm90(const StagePlan p, const StageArgs g) {
-  using Acc = typename std::conditional<MODE == kModeI8, int32_t,
-                                        float>::type;
-  constexpr bool kFlip = MODE == kModeBwd;
-  constexpr int kElem = MODE == kModeI8 ? 1 : 2;  // bytes per value
-  constexpr int kSums = MODE == kModeI8 ? 3 : 2;
-  // epilogue positions per thread with their loads in flight: the
-  // backward reads four tensors a position, so 4 only at the widest
-  // stages, where the accumulators' registers are free by then (measured
-  // on an H100: 2 and 4 slowed its C = 64..128); the forward modes read
-  // one
-  constexpr int kEpi = MODE == kModeBwd ? (NT >= 192 ? 4 : 1) : 4;
-  extern __shared__ __align__(128) unsigned char smem_sm90[];
-  unsigned char* smem = smem_sm90;
-  // [ring: kStages x (W | G)] [v0 v1 v2: NT floats each] [sums: 3 NT]
-  float* vec = reinterpret_cast<float*>(smem + p.ring_bytes);
-  float* red = vec + 3 * NT;
-
+// The engine's main loop, which the three stage modes (stage_sm90 below)
+// and P2 (probe_int8.cu) run: adds to acc the conv, at output channels n0
+// .. n0 + NT, of the block's 64 * WG positions (f0 + q / TT, t0 + q % TT,
+// q < 64 * WG; warpgroup w owns q in [64w, 64w + 64)) of the item whose
+// values start at bbase in src, over the plan's n_it ring stages, with
+// the ring at sbase.  Reads of rows outside [0, F) or columns outside
+// [0, T) are zero (the conv's padding).  Returns with every copy landed,
+// every product done and the block past a barrier, so the ring is free.
+template <int NT, int kElem, bool kFlip, int WG, typename Acc>
+__device__ __forceinline__ void conv_loop(const StagePlan& p,
+                                          const unsigned char* src,
+                                          const unsigned char* wpk,
+                                          size_t bbase, int f0, int t0,
+                                          int n0, uint32_t sbase,
+                                          Acc (&acc)[NT / 2]) {
+  constexpr int kThr = 128 * WG;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wg = warp >> 2, w4 = warp & 3;
-  const int b = blockIdx.z / p.splits, n0 = (blockIdx.z % p.splits) * NT;
-  const int t0 = blockIdx.x * p.TT, f0 = blockIdx.y * p.TF;
   const int TW = p.TT + 2, C = p.C, F = p.F, T = p.T, d = p.d;
   const int nch = C * kElem / kKB;
-  const size_t bbase = (size_t)b * F * T * C;  // in values
-  const uint32_t sbase = smem_u32(smem);
-  const unsigned char* src = static_cast<const unsigned char*>(g.src);
-  const unsigned char* wpk = static_cast<const unsigned char*>(g.wpk);
-
-  for (int n = tid; n < NT; n += kThreads) {
-    const int bc = b * C + n0 + n;
-    if (MODE == kModeBwd) {
-      vec[n] = g.v0[bc];
-      vec[NT + n] = g.v1[bc];
-      vec[2 * NT + n] = Elem<bf16>::round(g.v2[bc]);
-    } else {
-      vec[n] = MODE == kModeFwd ? Elem<bf16>::round(g.v0[bc]) : g.v0[bc];
-    }
-#pragma unroll
-    for (int k = 0; k < kSums; ++k) red[k * NT + n] = 0.f;
-  }
 
   Units un;
   un.n = 0;
 #pragma unroll
   for (int k = 0; k < kMaxUnits; ++k) {
-    const int u = tid + k * kThreads;
+    const int u = tid + k * kThr;
     un.dst[k] = un.fb[k] = un.t[k] = un.ch[k] = 0;
     if (u < p.TF * TW * 2) {
       const int px = u >> 1, fr = px / TW, col = px - fr * TW;
@@ -256,7 +237,7 @@ __global__ void __launch_bounds__(256, NT <= 128 ? 2 : 1)
     const unsigned char* wsrc =
         wpk + (size_t)((kFlip ? 4 - kf : kf) * nch + chunk) * 3 * C * kKB +
         (size_t)n0 * kKB;
-    for (int u = tid; u < 6 * NT; u += kThreads) {
+    for (int u = tid; u < 6 * NT; u += kThr) {
       const int kt = u / (2 * NT), r = u - kt * 2 * NT;
       cp16(sw + u * 16, wsrc + (size_t)kt * C * kKB + r * 16, true);
     }
@@ -273,10 +254,6 @@ __global__ void __launch_bounds__(256, NT <= 128 ? 2 : 1)
       }
     }
   };
-
-  Acc acc[NT / 2];
-#pragma unroll
-  for (int i = 0; i < NT / 2; ++i) acc[i] = 0;
 
   // this lane's ldmatrix row: position wg*64 + w4*16 + (lane & 15), its
   // 16-byte k half lane >> 4; byte offset in a window buffer at kt = 0
@@ -329,10 +306,62 @@ __global__ void __launch_bounds__(256, NT <= 128 ? 2 : 1)
   hold(o1);
   fence_acc(acc);
   cp_wait<0>();
-  __syncthreads();  // the ring is free: it becomes the epilogue tile
+  __syncthreads();  // the ring is free
+}
 
-  // accumulator register n8*4 + hr*2 + e: warp row gq + 8hr, column
-  // 8 n8 + 2q + e -> the tile, bf16 (rounded) or, for K3, fp32
+// Up to 128 channels a tile, two blocks share an SM (their rings fit its
+// shared memory): the register budget of 128 a thread keeps them so.
+template <int NT, int MODE>
+__global__ void __launch_bounds__(256, NT <= 128 ? 2 : 1)
+    stage_sm90(const StagePlan p, const StageArgs g) {
+  using Acc = typename std::conditional<MODE == kModeI8, int32_t,
+                                        float>::type;
+  constexpr bool kFlip = MODE == kModeBwd;
+  constexpr int kElem = MODE == kModeI8 ? 1 : 2;  // bytes per value
+  constexpr int kSums = MODE == kModeI8 ? 3 : 2;
+  // epilogue positions per thread with their loads in flight: the
+  // backward reads four tensors a position, so 4 only at the widest
+  // stages, where the accumulators' registers are free by then (measured
+  // on an H100: 2 and 4 slowed its C = 64..128); the forward modes read
+  // one
+  constexpr int kEpi = MODE == kModeBwd ? (NT >= 192 ? 4 : 1) : 4;
+  extern __shared__ __align__(128) unsigned char smem_sm90[];
+  unsigned char* smem = smem_sm90;
+  // [ring: kStages x (W | G)] [v0 v1 v2: NT floats each] [sums: 3 NT]
+  float* vec = reinterpret_cast<float*>(smem + p.ring_bytes);
+  float* red = vec + 3 * NT;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2, w4 = warp & 3;
+  const int b = blockIdx.z / p.splits, n0 = (blockIdx.z % p.splits) * NT;
+  const int t0 = blockIdx.x * p.TT, f0 = blockIdx.y * p.TF;
+  const int C = p.C, F = p.F, T = p.T;
+  const size_t bbase = (size_t)b * F * T * C;  // in values
+
+  for (int n = tid; n < NT; n += kThreads) {
+    const int bc = b * C + n0 + n;
+    if (MODE == kModeBwd) {
+      vec[n] = g.v0[bc];
+      vec[NT + n] = g.v1[bc];
+      vec[2 * NT + n] = Elem<bf16>::round(g.v2[bc]);
+    } else {
+      vec[n] = MODE == kModeFwd ? Elem<bf16>::round(g.v0[bc]) : g.v0[bc];
+    }
+#pragma unroll
+    for (int k = 0; k < kSums; ++k) red[k * NT + n] = 0.f;
+  }
+
+  Acc acc[NT / 2];
+#pragma unroll
+  for (int i = 0; i < NT / 2; ++i) acc[i] = 0;
+  conv_loop<NT, kElem, kFlip, 2>(
+      p, static_cast<const unsigned char*>(g.src),
+      static_cast<const unsigned char*>(g.wpk), bbase, f0, t0, n0,
+      smem_u32(smem), acc);
+
+  // the ring becomes the epilogue tile: accumulator register n8*4 + hr*2
+  // + e (warp row gq + 8hr, column 8 n8 + 2q + e) -> the tile, bf16
+  // (rounded) or, for K3, fp32
   constexpr int NP = MODE == kModeI8 ? NT + 4 : NT + 8;  // values per row
   bf16* tile = reinterpret_cast<bf16*>(smem);
   float* ftile = reinterpret_cast<float*>(smem);

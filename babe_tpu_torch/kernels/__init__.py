@@ -13,9 +13,12 @@ blind sampler's filter fit, ``csrc/filter_fit.cu``), ``fused_stage_int8``
 (K3, the int8 stage) and its operand pass ``stage_int8_operand``, both in
 ``csrc/fused_stage_int8.cu``, the int8 probe's ``probe_gemm`` (P1, the
 TMA + wgmma GEMM of ``csrc/probe_gemm_sm90.cuh``, cut by
-``probe_gemm_plan``) and ``probe_stage`` (P2), both built from
+``probe_gemm_plan``) and ``probe_stage`` (P2, the stage engine's main
+loop, cut by ``probe_stage_plan``), both built from
 ``csrc/probe_int8.cu``, ``dilated_conv``
-(K4, any odd kernel and both dilations, ``csrc/dilated_conv.cu``), and
+(K4, any odd kernel and both dilations, ``csrc/dilated_conv.cu``: a TMA +
+wgmma implicit GEMM or an older tile, by ``dilated_conv_route`` and
+``dilated_conv_plan``), and
 in ``csrc/conv_dw.cu`` the weight-gradient GEMM, counted as ``conv_dw``
 (the dw of K1 and K4) or as ``fused_stage_dw`` (the dw of K2, after its
 operand pass ``stage_dw_operands``, which also forms the input of K2's
@@ -29,7 +32,8 @@ launchers here take tensors, check them, launch on PyTorch's current
 stream and raise when the launch status is not ``cudaSuccess``.  Each
 build keeps ptxas's report beside the library (``BUILD_LOG``, read by
 ``ptxas_report``).  They
-count their launches in ``LAUNCHES``; nothing else touches the counts.
+count their launches in ``LAUNCHES`` (K4's also by route, in
+``ROUTE_LAUNCHES``); nothing else touches the counts.
 """
 
 from __future__ import annotations
@@ -75,10 +79,10 @@ KERNELS = {
                            [_P] * 4 + [_I] * 4 + [_P]),
     "probe_gemm": ("probe_int8", "babe_probe_gemm", [_P] * 3 + [_I] * 7
                    + [_P]),
-    "probe_stage": ("probe_int8", "babe_probe_stage", [_P] * 3 + [_I] * 9
-                    + [_P]),
+    "probe_stage": ("probe_int8", "babe_probe_stage", [_P] * 3 + [_IP]
+                    + [_I] * 10 + [_P]),
     "dilated_conv": ("dilated_conv", "babe_dilated_conv",
-                     [_P] * 4 + [_I] * 10 + [_P]),
+                     [_P] * 4 + [_I] * 10 + [_IP, _I, _P]),
     "conv_dw": ("conv_dw", "babe_conv_dw", [_P] * 4 + [_IP] + [_I] * 2
                 + [_P]),
     # fused_stage_dw: the operand pass, then the conv_dw GEMM on its output
@@ -92,6 +96,12 @@ KERNELS = {
 SOURCES = tuple(sorted({src for src, _, _ in KERNELS.values()}))
 
 LAUNCHES = {k: 0 for k in KERNELS if k != "dw_slots"}
+# K4's routes (csrc/dilated_conv.cu): the CUDA-core tile, the mma.sync
+# tile, the TMA + wgmma implicit GEMM; its launches by route beside its
+# count in LAUNCHES
+K4_SIMT, K4_MMA, K4_TMA = 0, 1, 2
+K4_ROUTES = ("simt", "mma", "tma")
+ROUTE_LAUNCHES = {"dilated_conv": dict.fromkeys(K4_ROUTES, 0)}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -102,6 +112,9 @@ BUILD_SECONDS: dict[str, float] = {}
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for counts in ROUTE_LAUNCHES.values():
+        for k in counts:
+            counts[k] = 0
 
 
 def _nvcc() -> str:
@@ -454,6 +467,7 @@ def launch_fused_stage(x, a, s, w, d: int, want_conv: bool = False):
 # engine's modes and constants
 STAGE_TILE, STAGE_ENGINE = 0, 1
 STAGE_FWD, STAGE_BWD, STAGE_I8 = 0, 1, 2
+STAGE_PROBE = 3        # P2's plans: the main loop alone (probe_int8.cu)
 STAGE_KB = 32          # contraction bytes per ring stage (a k-step)
 STAGE_KC = 16          # bf16 channels per ring stage (int8: 32)
 STAGE_PX = 24          # bf16 per staged window pixel (16 + pad): 48 bytes
@@ -590,14 +604,22 @@ def stage_fwd_weights(w: torch.Tensor) -> torch.Tensor:
     return stage_bwd_weights(w.transpose(2, 3))
 
 
-def stage_int8_weights(qwt: torch.Tensor) -> torch.Tensor:
-    """K3's engine weights from its tap-major int8 kernel qwt (15,C,C), in
-    one permute: (kf, chunk, kt, C/8, 2, 8, 16), element [kf, ch, kt, g, h,
-    r, e] = qwt[3kf + kt, 8g + r, 32ch + 16h + e], the same no-swizzle
-    K-major bytes as the bf16 packs (16 int8 per core-matrix row)."""
-    C = qwt.shape[1]
-    return qwt.reshape(5, 3, C // 8, 8, C // 32, 2, 16).permute(
+def stage_tap_weights(wt: torch.Tensor) -> torch.Tensor:
+    """The engine's weights from a tap-major kernel wt (15,C,C) [kf*3 + kt,
+    n, c] of bf16 or int8, in one permute: (kf, chunk, kt, C/8, 2, 8, v)
+    with v = 16 bytes of values (8 bf16, 16 int8), element [kf, ch, kt, g,
+    h, r, e] = wt[3kf + kt, 8g + r, 2v ch + v h + e]: the no-swizzle
+    K-major bytes every engine mode reads."""
+    C, v = wt.shape[1], 16 // wt.element_size()
+    return wt.reshape(5, 3, C // 8, 8, C // (2 * v), 2, v).permute(
         0, 4, 1, 2, 5, 3, 6).contiguous()
+
+
+def stage_int8_weights(qwt: torch.Tensor) -> torch.Tensor:
+    """K3's engine weights from its tap-major int8 kernel qwt (15,C,C)
+    (``stage_tap_weights``: 16 int8 per core-matrix row, the same bytes as
+    the bf16 packs)."""
+    return stage_tap_weights(qwt)
 
 
 # (mode, dtype, shape, d) -> (plan, its meta as a C int array, its length)
@@ -792,6 +814,40 @@ def probe_gemm_plan(M: int, K: int, N: int, dtype: torch.dtype,
     return GemmPlan(64, bn, gx, -(-N // bn), -(-K * elem // 128))
 
 
+PROBE_NT = (64, 32)      # P2's channel tiles, widest first
+PROBE_POS = 64           # positions per P2 block: one warpgroup
+PROBE_SMS = 132          # the H100's SMs: P2's cut aims at a wave of them
+
+
+def probe_stage_plan(BF: int, BT: int, C: int, d: int, dtype) -> StagePlan:
+    """P2's cut (a StagePlan of mode STAGE_PROBE for the stage engine's
+    loop over the staged rows, an input of (F, T) = (BF + 4d, BT + 16)):
+    blocks of one warpgroup, 64 window positions (TF rows x TT columns of
+    the BF x BT window, TT a power of two in 16..64) and NT output
+    channels, the widest of PROBE_NT that gives at least 90% of a wave of
+    PROBE_SMS blocks, else the narrowest; the engine's ring of STAGE_RING
+    stages.  Raises on a shape the loop does not take: C not a positive multiple of 32, BF, BT or d below 1."""
+    if dtype not in (torch.bfloat16, torch.int8):
+        raise ValueError(f"probe_stage: unsupported dtype {dtype}")
+    if C < 32 or C % 32 or min(BF, BT, d) < 1:
+        raise ValueError(f"probe_stage: (BF, BT, C, d) = ({BF}, {BT}, {C}, "
+                         f"{d}) not taken: C a positive multiple of 32, "
+                         f"BF, BT, d >= 1")
+    elem = 2 if dtype == torch.bfloat16 else 1
+    TT, TF = _tile_rows(BT, PROBE_POS, 16)
+    assert TF * (TT + 2) * 2 <= STAGE_UNITS * 128
+    gx, gy = -(-BT // TT), -(-BF // TF)
+    NT = next((nt for nt in PROBE_NT
+               if C % nt == 0 and gx * gy * (C // nt) >= 0.9 * PROBE_SMS),
+              PROBE_NT[-1])
+    win = _r128(TF * (TT + 2) * STAGE_PX * 2)
+    stage = _r128(3 * NT * STAGE_KB + win)
+    return StagePlan(STAGE_ENGINE, STAGE_PROBE, 1, BF + 4 * d, BT + 16, C, d,
+                     C // NT, TT.bit_length() - 1, TT, TF,
+                     5 * C * elem // STAGE_KB, STAGE_RING * stage, stage,
+                     win, STAGE_RING * stage, gx, gy, C // NT)
+
+
 def launch_probe_gemm(a: torch.Tensor, bt: torch.Tensor,
                       reps: int = 16) -> torch.Tensor:
     """P1 on the card: a (M,K) @ bt (N,K)^T, both bf16 (fp32 accumulate,
@@ -823,13 +879,17 @@ def launch_probe_gemm(a: torch.Tensor, bt: torch.Tensor,
 
 
 def launch_probe_stage(h: torch.Tensor, wt: torch.Tensor, BF: int, BT: int,
-                       d: int, reps: int = 8) -> torch.Tensor:
+                       d: int, reps: int = 8,
+                       wpk: torch.Tensor | None = None) -> torch.Tensor:
     """P2 on the card: staged rows h (BF+4d, BT+16, C) -> out (BF*BT, C),
     out[f*BT+t, n] = sum over (kf, kt, c) of h[f+kf*d, 7+kt+t, c] *
     wt[kf*3+kt, n, c], repeated ``reps`` times with a data dependency from
-    each repetition's result into the next one's staging (scaled by a
+    each repetition's result into the next one's accumulator (scaled by a
     runtime 0, so every repetition computes the same product).  bf16 in,
-    fp32 out, or int8 in, int32 out."""
+    fp32 out, or int8 in, int32 out.  The kernel reads the engine's pack
+    of wt: ``wpk``, ``stage_tap_weights(wt)`` made by the caller (a
+    timing keeps the pack out of what it times), else made here.  The cut
+    is ``probe_stage_plan``'s."""
     if h.dtype not in (torch.bfloat16, torch.int8):
         raise ValueError(f"probe_stage: unsupported dtype {h.dtype}")
     _check(h, "probe_stage h")
@@ -838,21 +898,149 @@ def launch_probe_stage(h: torch.Tensor, wt: torch.Tensor, BF: int, BT: int,
         raise ValueError(f"probe_stage: h must be ({BF + 4 * d}, {BT + 16}, "
                          f"C), got {tuple(h.shape)}")
     _check(wt, "probe_stage wt", h.dtype, (15, C, C))
+    if reps < 1:
+        raise ValueError(f"probe_stage: reps={reps} must be at least 1")
+    key = ("probe", h.dtype, nrows, BF, BT, C, int(d))
+    if key not in _STAGE_PLANS:
+        plan = probe_stage_plan(BF, BT, C, int(d), h.dtype)
+        # the plan's F covers BF + 4d rows; h may carry more below them
+        plan = dataclasses.replace(plan, F=nrows)
+        meta = plan.meta()
+        _STAGE_PLANS[key] = (plan, (ctypes.c_int * len(meta))(*meta),
+                             len(meta))
+    _, meta, n_meta = _STAGE_PLANS[key]
+    if wpk is None:
+        wpk = stage_tap_weights(wt)
+    _check(wpk, "probe_stage wpk", h.dtype, (5, C * h.element_size() // 32,
+                                             3, C // 8, 2, 8,
+                                             16 // h.element_size()))
     out = torch.empty((BF * BT, C), device=h.device, dtype=(
         torch.int32 if h.dtype == torch.int8 else torch.float32))
     fn = _entry("probe_stage")
-    rc = fn(h.data_ptr(), wt.data_ptr(), out.data_ptr(), nrows, BTw, C,
-            int(BF), int(BT), int(d), int(reps), 0, _DTYPES[h.dtype],
-            _stream(h))
+    rc = fn(h.data_ptr(), wpk.data_ptr(), out.data_ptr(), meta, n_meta,
+            nrows, BTw, C, int(BF), int(BT), int(d), int(reps), 0,
+            _DTYPES[h.dtype], _stream(h))
     _status("probe_stage", rc)
     LAUNCHES["probe_stage"] += 1
     return out
 
 
+# K4's TMA route (csrc/dilated_conv.cu): a block is two consumer
+# warpgroups of at most 64 positions each; a ring stage holds their two A
+# boxes (64 positions x 64 channels, 8 KiB each) and one B box (64
+# channels x BN outputs)
+K4_CHUNK = 64                    # channels per ring stage: 128 bytes
+K4_ABOX = 64 * 128               # bytes of one warpgroup's A slot
+K4_WIDTHS = (64, 96, 128, 256)   # BN, the block's outputs
+K4_RING = 196608                 # ring bytes an SM's blocks share: two
+                                 # blocks of BN <= 128, one of 256
+# the mma tile's constants (mma_frag.cuh): positions and outputs per
+# block, bf16 per staged pixel
+K4_MMA_POS, K4_MMA_NB, K4_MMA_PX = 128, 64, 24
+
+
+def dilated_conv_route(dtype, T: int, C: int, N: int, kf: int, kt: int,
+                       dt: int) -> int:
+    """K4's route: the TMA route for bf16 with C and N multiples of 8
+    (every level shape and its dx; the 16-byte strides its tensor maps and
+    stores need); else the mma tile for bf16 with rows of 16 and 16
+    channels whose staged window fits shared memory; else CUDA cores."""
+    if dtype == torch.bfloat16:
+        if C % 8 == 0 and N % 8 == 0:
+            return K4_TMA
+        TF, TW = K4_MMA_POS // 16, 16 + (kt - 1) * dt
+        smem = (TF * kf * TW + kf * kt * K4_MMA_NB) * K4_MMA_PX * 2
+        if T >= 16 and C >= 16 and smem <= MAX_SMEM:
+            return K4_MMA
+    return K4_SIMT
+
+
+@dataclasses.dataclass(frozen=True)
+class DconvPlan:
+    """The cut of one K4 call, passed to the kernel as its Plan struct:
+    these fields, all ints, in this order.  TMA route: block (gx, gy, z)
+    owns outputs n0 = (z % n_tiles) * bn .. n0 + bn of item z //
+    n_tiles at the TT x 2TF positions from (f0, t0) = (gy * 2TF, gx *
+    TT): warpgroup w the TF rows from f0 + w TF (its A box, TT * TF <= 64
+    of its 64 rows).  It walks n_k = KF * KT * nch ring stages, tap =
+    it // nch (kf = tap // KT, kt = tap % KT) and channels c0 = (it %
+    nch) * 64 .. c0 + 64, in a ring of ``stages`` slots."""
+    route: int
+    B: int
+    F: int
+    T: int
+    C: int
+    N: int
+    KF: int
+    KT: int
+    df: int
+    dt: int
+    TT: int = 0
+    TF: int = 0
+    bn: int = 0
+    n_tiles: int = 0
+    nch: int = 0
+    n_k: int = 0
+    stages: int = 0
+    stage_bytes: int = 0
+    smem: int = 0
+    gx: int = 0
+    gy: int = 0
+    gz: int = 0
+
+    def meta(self) -> list[int]:
+        return [int(getattr(self, f.name)) for f in dataclasses.fields(self)]
+
+
+def _k4_box(F: int, T: int) -> tuple[int, int]:
+    """(TT, TF) of the TMA route's A box: TF = 64 // TT rows of TT
+    columns, covering F x T with the fewest blocks of two boxes (the widest
+    TT among equals)."""
+    best = None
+    for TT in range(min(T, 64), 0, -1):
+        TF = 64 // TT
+        blocks = -(-T // TT) * -(-F // (2 * TF))
+        if best is None or blocks < best[0]:
+            best = (blocks, TT, TF)
+    return best[1], best[2]
+
+
+def dilated_conv_plan(dtype, B: int, F: int, T: int, C: int, N: int,
+                      kshape, dilation) -> DconvPlan:
+    """The route and cut of one K4 call (see ``DconvPlan``)."""
+    kf, kt = (int(v) for v in kshape)
+    df, dt = (int(v) for v in dilation)
+    base = dict(B=B, F=F, T=T, C=C, N=N, KF=kf, KT=kt, df=df, dt=dt)
+    route = dilated_conv_route(dtype, T, C, N, kf, kt, dt)
+    if route != K4_TMA:
+        return DconvPlan(route, **base)
+    TT, TF = _k4_box(F, T)
+    bn = next((w for w in K4_WIDTHS if w >= N), K4_WIDTHS[-1])
+    n_tiles = -(-N // bn)
+    nch = -(-C // K4_CHUNK)
+    stage = 2 * K4_ABOX + bn * 128
+    stages = min(8, K4_RING // (2 if bn <= 128 else 1) // stage)
+    plan = DconvPlan(route, **base, TT=TT, TF=TF, bn=bn, n_tiles=n_tiles,
+                     nch=nch, n_k=kf * kt * nch, stages=stages,
+                     stage_bytes=stage, smem=stages * stage + 1024,
+                     gx=-(-T // TT), gy=-(-F // (2 * TF)), gz=B * n_tiles)
+    if plan.gy > 65535 or plan.gz > 65535:
+        raise ValueError(f"dilated_conv: grid {plan.gx}x{plan.gy}x{plan.gz} "
+                         f"too large for ({B},{F},{T},{C}) -> {N}")
+    return plan
+
+
+# (dtype, shape, kernel, dilation) -> (plan, its meta as a C int array,
+# its length)
+_K4_PLANS: dict = {}
+
+
 def launch_dilated_conv(x: torch.Tensor, w: torch.Tensor,
                         dilation) -> torch.Tensor:
     """K4 on the card: x (B,F,T,C), w (KF,KT,C,N) of x's dtype with odd
-    KF, KT <= 7, dilation (df, dt) -> (B,F,T,N)."""
+    KF, KT <= 7, dilation (df, dt) -> (B,F,T,N).  The route is
+    ``dilated_conv_route``'s, the cut ``dilated_conv_plan``'s; the
+    tap-major copy of w is made only for the routes that read it."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"dilated_conv: unsupported dtype {x.dtype}")
     _check(x, "dilated_conv x")
@@ -867,13 +1055,23 @@ def launch_dilated_conv(x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"dilated_conv: kernel ({kf},{kt}) dilation "
                          f"({df},{dt}) not supported (odd sizes up to 7)")
     _check(w, "dilated_conv w", x.dtype)
+    key = (x.dtype, B, F, T, C, N, kf, kt, df, dt)
+    if key not in _K4_PLANS:
+        plan = dilated_conv_plan(x.dtype, B, F, T, C, N, (kf, kt), (df, dt))
+        meta = plan.meta()
+        _K4_PLANS[key] = (plan, (ctypes.c_int * len(meta))(*meta), len(meta))
+    plan, meta, n_meta = _K4_PLANS[key]
+    wt = tap_major(w) if plan.route != K4_SIMT else w
     y = torch.empty((B, F, T, N), dtype=x.dtype, device=x.device)
+    if plan.route == K4_TMA and any(t.data_ptr() % 16 for t in (x, wt, y)):
+        raise ValueError("dilated_conv: the TMA route needs 16-byte aligned "
+                         "tensors")
     fn = _entry("dilated_conv")
-    wt = tap_major(w)
     rc = fn(x.data_ptr(), w.data_ptr(), wt.data_ptr(), y.data_ptr(), B, F, T,
-            C, N, kf, kt, df, dt, _DTYPES[x.dtype], _stream(x))
+            C, N, kf, kt, df, dt, _DTYPES[x.dtype], meta, n_meta, _stream(x))
     _status("dilated_conv", rc)
     LAUNCHES["dilated_conv"] += 1
+    ROUTE_LAUNCHES["dilated_conv"][K4_ROUTES[plan.route]] += 1
     return y
 
 

@@ -9,7 +9,8 @@ Counterpart of ``tools/probe_pallas_int8.py``, with its two measurements:
   2. P2, the int8 stage's core without its prologue and epilogue: staged
      rows (BF + 4d, BT + 16, C) -> the 15 shifted patches of the implicit
      GEMM -> 5 x 3 tap products, 8 dependent repetitions per launch, in
-     bf16 and in int8 (babe_probe_stage).
+     bf16 and in int8 (babe_probe_stage: the stage engine's main loop, so
+     its ratio is that of K2's and K3's core).
 
 Each prints the time of one product (a launch's time over its
 repetitions) and its rate (Tops/s).  Launches are timed as device time:
@@ -151,8 +152,9 @@ def run(reps: int = 30, log=print) -> list[dict]:
             f"C={C} d={d} (x{STAGE_REPS} inner) --")
         for dt in DTYPES:
             h, _, wt = stage_inputs(BF, BT, C, d, dt, gen, dev)
+            wpk = kernels.stage_tap_weights(wt)  # packed once, untimed
             ms = device_ms(lambda: kernels.launch_probe_stage(
-                h, wt, BF, BT, d, STAGE_REPS), reps) / STAGE_REPS
+                h, wt, BF, BT, d, STAGE_REPS, wpk=wpk), reps) / STAGE_REPS
             tops = stage_ops(BF, BT, C) / (ms * 1e-3) / 1e12
             name = str(dt).split(".")[-1]
             log(f"  {name}: {ms:8.4f} ms  {tops:7.1f} Tops/s per product "

@@ -28,13 +28,21 @@ Phases (any failure exits non-zero; no phase catches and carries on):
                 seeds K2_FP32_SEEDS (K2's fp32 conv output and y are held
                 to the plain version run in float64 on the same inputs,
                 within K2_FP32_RATIO of the plain fp32 version's own
-                error); K4 (the
+                error); each bf16 engine shape of K2 also times K4's TMA
+                route on the same conv beside K2's engine (one line a
+                shape, and their sums per evaluation); K4 (the
                 general dilated conv) at tests/test_pallas_conv.py's shapes
                 with kernels (3,3), (5,3), (7,3), (3,5) and dilations up to
-                (4,1) and (2,2), and
-                at the five level shapes of pallas_conv.py's table (batch
-                4), then through its entry point (forward and dx) at those
-                shapes with its launches counted; the weight gradients
+                (4,1) and (2,2), at the five level shapes of
+                pallas_conv.py's table (batch 4) and at the TMA route's
+                edge shapes K4_EDGE, and bf16 shapes that keep the older
+                mma and CUDA-core tiles (K4_OLD_TILES), each line naming
+                the route its launch took (a shape off its route fails),
+                then through its
+                entry point (forward and dx) at the level shapes with its
+                launches counted by route (all on the TMA route, or it
+                fails), and it fails if ptxas gave the TMA route a stack
+                frame; the weight gradients
                 conv_dw (the 7 pyramid convs and their transposed shapes)
                 and fused_stage_dw with its operand pass
                 stage_dw_operands (every distinct stage shape) at the
@@ -50,10 +58,13 @@ Phases (any failure exits non-zero; no phase catches and carries on):
                 its time, its bound, the plain version's time and a cuDNN
                 yardstick (a conv, or its weight gradient; bf16 for K3: no
                 PyTorch call computes an int8 conv).
-  3. probe      the int8 probe's kernels (P1 GEMM, P2 stage core) against
-                their plain versions (int8 bit-exact), P1 also at the edge
-                shapes GEMM_EDGE and refusing GEMM_REFUSED before it
-                launches, with P1's tile, grid and ptxas's C7513 status,
+  3. probe      the int8 probe's kernels (P1 GEMM, P2 stage core on the
+                stage engine's loop) against their plain versions (int8
+                bit-exact), P1 also at the edge shapes GEMM_EDGE and
+                refusing GEMM_REFUSED before it launches, P2 also at
+                P2_EDGE, with P1's tile, grid and ptxas's C7513 status,
+                P2's cut, its time per ring stage at its grid and at a
+                grid of one position block, ptxas's view of its loop,
                 the int8:bf16 rate ratios and the yardsticks as device time
                 (cuBLAS for P1, a bf16 cuDNN conv for P2, each captured in
                 a CUDA graph), then the probe entry point
@@ -177,15 +188,17 @@ PER = {
                   "products in one CUDA graph, a replay over 16",
     "probe_stage": "one product at each of 2 shapes x (bf16, int8), timed "
                    "as device time over launches of 8 repetitions in a "
-                   "CUDA graph; library_ms is a bf16 "
+                   "CUDA graph (the weight pack made once, outside); "
+                   "library_ms is a bf16 "
                    "cuDNN conv of the staged rows (dilation (d,1), sliced "
                    "to P2's window) for each of the four, 8 in one CUDA "
                    "graph, a replay over 8 (no PyTorch call computes an "
                    "int8 conv)",
     "dilated_conv": "one forward at each of the five level shapes of "
                     "pallas_conv.py's table (batch 4, kernel (5,3), N = C), "
-                    "bf16; launches: its entry point's forward and dx at "
-                    "those shapes; library_ms is cuDNN F.conv2d",
+                    "bf16, on the TMA route (its weight pack included); "
+                    "launches: its entry point's forward and dx at those "
+                    "shapes; library_ms is cuDNN F.conv2d",
     "conv_dw": "one training step (flagship, batch 4, 184184 samples), "
                "bf16: the 7 pyramid convs' weight gradients; library_ms is "
                "cuDNN's weight gradient (aten.convolution_backward)",
@@ -374,6 +387,9 @@ def phase_kernels(results: dict):
     F0, T0, _, _ = min(k3_shapes)
     k3_shapes[(F0, T0, 100, 2)] = 0
 
+    side_lines, side = [], {"k4": 0.0, "k2": 0.0, "bound": 0.0,
+                            "epi": 0.0}
+
     def library_conv(x, w, d):
         return _library_conv(x, w, (d, 1))
 
@@ -468,6 +484,9 @@ def phase_kernels(results: dict):
                          f"({byo}) plain={t_op:.4f}")
                 account("stage_fwd_operand", count, dtype, t_o, t_op, 0.0,
                         o_flops, o_bytes, eh, op_dtype=torch.float32)
+                if dtype == torch.bfloat16:
+                    side_lines.append(_side_by_side(x, w, d, t_k, t_o,
+                                                    count, side))
             log(line)
             account("fused_stage", count, dtype, t_k, t_p, t_l, flops,
                     nbytes, ey)
@@ -487,6 +506,18 @@ def phase_kernels(results: dict):
                 f"plain={t_p:.4f} cudnn={t_l:.4f}")
             account("fused_stage_bwd", count, dtype, t_k, t_p, t_l, flops,
                     nbytes, edx)
+        if dtype == torch.bfloat16:
+            # K4's TMA route (SS operands by descriptor, a TMA ring, no
+            # C7513) against K2's engine (RS, ldmatrix A, a cp.async ring)
+            # on the same conv: which holds the tensor cores better
+            for line in side_lines:
+                log(line)
+            log(f"side by side, per guided evaluation (75 stages): K4 tma "
+                f"ms={side['k4']:.3f} K2 engine ms={side['k2']:.3f} "
+                f"(bf16 peak bound {side['bound']:.3f}: "
+                f"{100 * side['bound'] / side['k4']:.1f}% and "
+                f"{100 * side['bound'] / side['k2']:.1f}%); K2's epilogue "
+                f"adds bytes whose least time is {side['epi']:.3f} ms")
         ok &= _kernel_edges(dtype, g9)
         for (F, T, C, d), count in sorted(k3_shapes.items()):
             ok &= _kernel_int8_stage(1, F, T, C, d, count, dtype, g8,
@@ -495,6 +526,7 @@ def phase_kernels(results: dict):
     for dtype in (torch.bfloat16, torch.float32):
         ok &= _stage_fwd_edges(dtype, g9)
     ok &= _k2_fp32_evidence(k2_shapes)
+    _engine_digests()
     ok &= _kernel_filter_fit(agg["filter_fit"])
     ok &= _kernel_k4(account, results)
     ok &= _kernel_dw(account, k1_shapes, k2_shapes)
@@ -833,21 +865,107 @@ def _library_wgrad(x, g, kshape, dil):
 
 # K4's shapes: tests/test_pallas_conv.py's (B, F, T, C, N) at four kernels
 # and four dilations, then the five level shapes of pallas_conv.py's table
-# (F, T, C, df) at batch 4 with the (5,3) kernel
+# (F, T, C, df) at batch 4 with the (5,3) kernel, then edges of the TMA
+# route's cut: T = 20 and 13 (boxes of 20 x 3 and 13 x 4 positions, their
+# leftover rows never stored) on F not a multiple of the block's rows, C =
+# 96 (the second 64-channel chunk half zero fill), N = 40 (a ragged weight
+# box), (7,5) with dt = 2, and df = 64 on F = 64 (every kf but the centre
+# reads only padding)
 K4_SMALL = [(2, 16, 64, 8, 8, kf, kt, dil)
             for kf, kt in ((3, 3), (5, 3), (7, 3), (3, 5))
             for dil in ((1, 1), (2, 1), (4, 1), (2, 2))]
 K4_LEVELS = [(4, F, T, C, C, 5, 3, (df, 1)) for F, T, C, df in (
     (64, 1280, 64, 2), (128, 640, 96, 4), (256, 160, 128, 16),
     (384, 40, 256, 32), (448, 20, 256, 64))]
+K4_EDGE = [(2, 37, 20, 64, 64, 5, 3, (2, 1)), (1, 30, 13, 64, 64, 5, 3, (1, 1)),
+           (1, 40, 40, 96, 96, 5, 3, (4, 1)), (1, 32, 48, 64, 40, 5, 3, (2, 1)),
+           (1, 24, 33, 64, 64, 7, 5, (2, 2)),
+           (1, 64, 32, 128, 128, 5, 3, (64, 1))]
+# bf16 shapes that keep K4's older tiles, with the route each must take:
+# C and N off a multiple of 8 on the mma tile, and C = 12 (too few
+# channels for it) and T = 8 (rows of 8) on the CUDA cores
+K4_OLD_TILES = {(1, 32, 64, 100, 100, 5, 3, (2, 1)): "mma",
+                (2, 24, 48, 36, 20, 5, 3, (1, 2)): "mma",
+                (1, 16, 40, 12, 12, 3, 3, (1, 1)): "simt",
+                (1, 20, 8, 24, 20, 5, 3, (2, 1)): "simt"}
+
+
+def _k4_ptxas_gate(kernels) -> bool:
+    """Every instantiation of K4's TMA route (dconv_tma) has no stack frame
+    and no spills; its registers and ptxas's C7513 status are logged."""
+    rep = {k: v for k, v in kernels.ptxas_report(
+        kernels.BUILD_LOG.get("dilated_conv", "")).items()
+        if "dconv_tma" in k}
+    bad = {k: v for k, v in rep.items()
+           if v["stack"] or v["spill_stores"] or v["spill_loads"]}
+    log("K4 tma ptxas: " + "; ".join(
+        f"{k}: {v['registers']} registers, stack {v['stack']}, spills "
+        f"{v['spill_stores']}/{v['spill_loads']}, "
+        f"{'C7513 (serialized wgmma)' if v['c7513'] else 'no C7513'}"
+        for k, v in sorted(rep.items())))
+    return bool(rep) and not bad
+
+
+# the stage engine's digest shapes (B, F, T, C, d): each engine width,
+# ragged T, d up to 64, batch 4
+DIGEST_SHAPES = ((1, 64, 2048, 64, 1), (1, 128, 1024, 96, 4),
+                 (1, 48, 20, 96, 1), (1, 256, 256, 128, 16),
+                 (1, 64, 70, 128, 4), (1, 384, 64, 256, 64),
+                 (4, 448, 32, 256, 8))
+
+
+def _engine_digests() -> None:
+    """Logs, per DIGEST_SHAPES shape, a SHA-1 of the bytes of K2's y and
+    c, K2's backward dx and K3's y on inputs seeded by the shape alone, so
+    that two builds of the stage engine (two commits' runs of this script)
+    can be compared bit for bit.  The moments and the backward's ds and da
+    are left out: fp32 atomics sum them, and their last bits vary from run
+    to run."""
+    import hashlib
+
+    import torch
+
+    from babe_tpu_torch import kernels
+    from babe_tpu_torch.ops import conv_kernels as ck
+
+    def sha(t) -> str:
+        raw = t.contiguous().view(-1).view(torch.uint8).cpu().numpy()
+        return hashlib.sha1(raw.tobytes()).hexdigest()[:16]
+
+    dev = torch.device("cuda")
+    for B, F, T, C, d in DIGEST_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(B * 7 + F + T + C + d)
+        x = torch.randn((B, F, T, C), generator=g, device=dev).bfloat16()
+        w = (torch.randn((5, 3, C, C), generator=g, device=dev)
+             / math.sqrt(15 * C)).bfloat16()
+        a = 0.5 + torch.rand((B, C), generator=g, device=dev)
+        s = torch.randn((B, C), generator=g, device=dev)
+        gy = torch.randn((B, F, T, C), generator=g, device=dev).bfloat16()
+        gm = torch.randn((2, B, C), generator=g, device=dev) / (F * T)
+        y, _, c = kernels.launch_fused_stage(x, a, s, w, d, want_conv=True)
+        dx, _, _ = kernels.launch_fused_stage_bwd(gy, gm, y, x, c, a, s, w, d)
+        line = (f"engine digest B={B} F={F} T={T} C={C} d={d}: K2 y "
+                f"{sha(y)} c {sha(c)} K2bwd dx {sha(dx)}")
+        if C >= 96:
+            qw, _ = ck.quant_weight_per_cout(w.float())
+            iv = 0.5 + torch.rand((B,), generator=g, device=dev)
+            post = torch.rand((B, C), generator=g, device=dev) * 1e-3
+            y8, _, _ = kernels.launch_fused_stage_int8(
+                x, a, iv, post, kernels.tap_major(qw), d)
+            line += f" K3 y {sha(y8)}"
+        log(line)
 
 
 def _kernel_k4(account, results) -> bool:
-    """K4 against its plain version (``conv_ref``) at K4_SMALL and
-    K4_LEVELS in bf16 and fp32, with times at the level shapes; then its
-    entry point ``dilated_conv_nhwc`` (forward and dx, the weight frozen)
-    at the level shapes, with the counters zeroed just before and read just
-    after: K4's launches."""
+    """K4 against its plain version (``conv_ref``) at K4_SMALL, K4_LEVELS,
+    K4_EDGE and K4_OLD_TILES in bf16 and fp32, each line naming the route
+    the launch took (a shape fails off its route: fp32 on the CUDA cores,
+    bf16 on the TMA route but for K4_OLD_TILES), with times at the level
+    shapes beside cuDNN's; then its entry point ``dilated_conv_nhwc``
+    (forward and dx, the weight frozen) at the level shapes, with the
+    counters zeroed just before and read just after: K4's launches, every
+    one on the TMA route.  Fails if ptxas gave the TMA route a stack
+    frame."""
     import torch
 
     from babe_tpu_torch import kernels
@@ -855,25 +973,39 @@ def _kernel_k4(account, results) -> bool:
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(5)
-    ok = True
+    ok = _k4_ptxas_gate(kernels)
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[-1]
         isz = torch.tensor([], dtype=dtype).element_size()
-        for B, F, T, C, N, kf, kt, dil in K4_SMALL + K4_LEVELS:
+        for shape in K4_SMALL + K4_LEVELS + K4_EDGE + list(K4_OLD_TILES):
+            B, F, T, C, N, kf, kt, dil = shape
             x = torch.randn((B, F, T, C), generator=g, device=dev).to(dtype)
             w = (torch.randn((kf, kt, C, N), generator=g, device=dev)
                  / math.sqrt(kf * kt * C)).to(dtype)
+            before = dict(kernels.ROUTE_LAUNCHES["dilated_conv"])
             y = kernels.launch_dilated_conv(x, w, dil)
             ref = pc.conv_ref(x, w, dil)
             torch.cuda.synchronize()
             e = errs(y, ref)
-            good = within(e, dn)
+            plan = kernels.dilated_conv_plan(dtype, B, F, T, C, N, (kf, kt),
+                                             dil)
+            route = ",".join(
+                r for r, n in kernels.ROUTE_LAUNCHES["dilated_conv"].items()
+                if n != before.get(r, 0))
+            want = ("simt" if dtype == torch.float32
+                    else K4_OLD_TILES.get(shape, "tma"))
+            level = shape in K4_LEVELS
+            good = (within(e, dn) and bool(torch.isfinite(y).all())
+                    and route == want)
             ok &= good
-            line = (f"K4 {dn:8s} B={B} F={F:3d} T={T:4d} C={C:3d} N={N:3d} "
-                    f"k=({kf},{kt}) dil={dil}: max_abs={e[0]:.3e} "
-                    f"max_rel={e[1]:.2e} l2_rel={e[2]:.2e} "
-                    f"{'ok' if good else 'FAIL'}")
-            if B == 4:
+            cut = (f" box {plan.TT}x{plan.TF} BN={plan.bn} "
+                   f"{plan.gx * plan.gy * plan.gz} blocks"
+                   if route == "tma" else "")
+            line = (f"K4 {dn:8s} [{route}{cut}] B={B} F={F:3d} T={T:4d} "
+                    f"C={C:3d} N={N:3d} k=({kf},{kt}) dil={dil}: max_abs="
+                    f"{e[0]:.3e} max_rel={e[1]:.2e} l2_rel={e[2]:.2e} "
+                    f"{'ok' if good else f'FAIL (want the {want} route)'}")
+            if level:
                 t_k = cuda_time(lambda: kernels.launch_dilated_conv(
                     x, w, dil))
                 t_p = cuda_time(lambda: pc.conv_ref(x, w, dil), reps=2)
@@ -882,7 +1014,8 @@ def _kernel_k4(account, results) -> bool:
                 nbytes = (B * F * T * (C + N) + kf * kt * C * N) * isz
                 b, by = bound_ms(flops, nbytes, dtype)
                 line += (f" | ms={t_k:.4f} bound={b:.4f}({by}) "
-                         f"plain={t_p:.4f} cudnn={t_l:.4f}")
+                         f"plain={t_p:.4f} cudnn={t_l:.4f} "
+                         f"({100 * b / t_k:.1f}% of the bound)")
                 account("dilated_conv", 1, dtype, t_k, t_p, t_l, flops,
                         nbytes, e)
             log(line)
@@ -897,13 +1030,38 @@ def _kernel_k4(account, results) -> bool:
         ok &= bool(torch.isfinite(x.grad).all())
     torch.cuda.synchronize()
     n = kernels.LAUNCHES["dilated_conv"]
+    by_route = dict(kernels.ROUTE_LAUNCHES["dilated_conv"])
     log(f"K4 entry point (dilated_conv_nhwc, forward + dx at the "
-        f"{len(K4_LEVELS)} level shapes): {n} launches")
-    if n != 2 * len(K4_LEVELS):
-        raise RuntimeError(f"K4's entry point launched it {n} times, not "
-                           f"{2 * len(K4_LEVELS)}")
+        f"{len(K4_LEVELS)} level shapes): {n} launches, by route {by_route}")
+    if n != 2 * len(K4_LEVELS) or by_route["tma"] != n:
+        raise RuntimeError(f"K4's entry point launched it {n} times "
+                           f"({by_route}), not {2 * len(K4_LEVELS)} on the "
+                           f"TMA route")
     results.setdefault("launches", {})["dilated_conv"] = n
     return ok
+
+
+def _side_by_side(x, w, d, t_k2, t_op, count, side) -> str:
+    """K4's TMA route at one of K2's stage shapes (bf16, (5,3), dilation
+    (d,1), C -> C) beside K2's engine there: the engine's time is K2's
+    launch less its operand pass (both times include their weight pack).
+    That launch also runs K2's epilogue, which moves 4 bytes an element
+    more than K4 (x read for the gated residual, c written); ``side["epi"]``
+    sums those bytes' least time at the memory rate.  Adds the shape's
+    times, times its stages per evaluation, to ``side``."""
+    from babe_tpu_torch import kernels
+
+    B, F, T, C = x.shape
+    t4 = cuda_time(lambda: kernels.launch_dilated_conv(x, w, (d, 1)))
+    t2 = t_k2 - t_op
+    peak = 2.0 * B * F * T * C * C * 15 / PEAK_BF16 * 1e3
+    side["k4"] += count * t4
+    side["k2"] += count * t2
+    side["bound"] += count * peak
+    side["epi"] += count * 4.0 * B * F * T * C / HBM_BPS * 1e3
+    return (f"side by side F={F:3d} T={T:4d} C={C:3d} d={d:2d} x{count}: "
+            f"K4 tma ms={t4:.4f} ({100 * peak / t4:.1f}% of the bf16 peak) "
+            f"| K2 engine ms={t2:.4f} ({100 * peak / max(t2, 1e-9):.1f}%)")
 
 
 # conv_dw's edge shapes (B, F, T, C, N, kernel, dilation): chunks that
@@ -1133,6 +1291,9 @@ def _kernel_int8_stage(B, F, T, C, d, count, dtype, g, account,
 GEMM_EDGE = {"bfloat16": [(100, 48, 70), (1, 16, 1), (2048, 400, 200)],
              "int8": [(100, 96, 70), (1, 32, 1), (2048, 416, 200)]}
 GEMM_REFUSED = {"bfloat16": (64, 40, 64), "int8": (64, 48, 64)}
+# P2's shapes (BF, BT, C, d) off the probe's: ragged BT (100, 20, 50) on
+# the engine loop's boxes of 64 x 1, 32 x 2 and 64 x 1, C = 96 and 64
+P2_EDGE = [(5, 100, 96, 2), (7, 20, 64, 3), (3, 50, 64, 1)]
 
 
 def _p2_library(h, w5, BF, BT, d):
@@ -1261,6 +1422,13 @@ def phase_probe(results: dict):
         ok &= refused
         if not refused:
             log(f"probe_gemm {dn:8s} {(M, K, N)}: FAIL, not refused")
+    stage_entries = {k: v for k, v in kernels.ptxas_report(
+        kernels.BUILD_LOG.get("probe_int8", "")).items()
+        if "stage_probe" in k}
+    log("P2 ptxas (the stage engine's loop): " + "; ".join(
+        f"{k}: {v['registers']} registers, stack {v['stack']}, "
+        f"{'C7513 (serialized wgmma)' if v['c7513'] else 'no C7513'}"
+        for k, v in sorted(stage_entries.items())))
     for BF, BT, C, d in probe.STAGE_SHAPES:
         for dt in probe.DTYPES:
             h, w5, wt = probe.stage_inputs(BF, BT, C, d, dt, g, dev)
@@ -1268,8 +1436,10 @@ def phase_probe(results: dict):
                                              probe.STAGE_REPS)
             ref = probe.probe_stage_ref(h, w5, BF, BT, d)
             torch.cuda.synchronize()
-            run = lambda: kernels.launch_probe_stage(h, wt, BF, BT, d,
-                                                     probe.STAGE_REPS)
+            # the kernel alone: the engine's weight pack made once, outside
+            wpk = kernels.stage_tap_weights(wt)
+            run = lambda: kernels.launch_probe_stage(
+                h, wt, BF, BT, d, probe.STAGE_REPS, wpk=wpk)
             t_k = probe.device_ms(run, 4) / probe.STAGE_REPS
             t_k_eager = cuda_time(run, 20) / probe.STAGE_REPS
             t_p = cuda_time(lambda: probe.probe_stage_ref(h, w5, BF, BT, d),
@@ -1281,6 +1451,14 @@ def phase_probe(results: dict):
                                              d))
             ok &= within(e_l, "bfloat16")
             t_l = probe.device_ms(conv, probe.STAGE_REPS)
+            plan = kernels.probe_stage_plan(BF, BT, C, d, dt)
+            # the loop's latency per ring stage: this grid, and a grid of
+            # one position block (C / 32 blocks) at the same contraction
+            hs, _, wts = probe.stage_inputs(1, plan.TT, C, d, dt, g, dev)
+            wpks = kernels.stage_tap_weights(wts)
+            t_s = probe.device_ms(lambda: kernels.launch_probe_stage(
+                hs, wts, 1, plan.TT, d, probe.STAGE_REPS, wpk=wpks),
+                4) / probe.STAGE_REPS
             judge("probe_stage", out, ref, dt, t_k, t_p, t_l,
                   probe.stage_ops(BF, BT, C),
                   (h.numel() + wt.numel()) * h.element_size()
@@ -1289,7 +1467,23 @@ def phase_probe(results: dict):
                   f"cudnn={t_l:.5f} (bf16 conv, graph of "
                   f"{probe.STAGE_REPS}; vs the plain version max_rel "
                   f"{e_l[1]:.2e} {'ok' if within(e_l, 'bfloat16') else 'FAIL'}"
-                  f")")
+                  f") | engine loop: {plan.TT}x{plan.TF} positions x NT="
+                  f"{C // plan.splits}, {plan.gx * plan.gy * plan.gz} "
+                  f"blocks, {plan.n_it} ring stages per product, "
+                  f"{1e3 * t_k / plan.n_it:.3f} us per stage; "
+                  f"{C // 32} blocks: {1e3 * t_s / plan.n_it:.3f} us per "
+                  f"stage")
+    for dt in probe.DTYPES:
+        dn = str(dt).split(".")[-1]
+        for BF, BT, C, d in P2_EDGE:
+            h, w5, wt = probe.stage_inputs(BF, BT, C, d, dt, g, dev)
+            out = kernels.launch_probe_stage(h, wt, BF, BT, d, 3)
+            e, good = check(out, probe.probe_stage_ref(h, w5, BF, BT, d), dt)
+            ok &= good
+            plan = kernels.probe_stage_plan(BF, BT, C, d, dt)
+            log(f"probe_stage {dn:8s} edge {(BF, BT, C, d)} [{plan.TT}x"
+                f"{plan.TF} x NT={C // plan.splits}]: max_abs={e[0]:.3e} "
+                f"{'ok' if good else 'FAIL'}")
     for name, shape, dn in sorted(rate):
         if dn == "int8":
             ratio = rate[name, shape, "int8"] / rate[name, shape, "bfloat16"]
