@@ -5,25 +5,32 @@ Counterpart of ``babe_tpu/api.py``:
     from babe_tpu_torch.api import BABE
 
     model = BABE.load("exp/22k_8s-850000.ckpt")         # on "cuda"
-    audio, info = model.enhance(x, 22050)               # zero-shot blind BWE
-    audio, info = model.enhance(x, 22050, filter=(1000.0, -40.0))  # informed
-    fc, A = model.estimate_filter(x, 22050)
+    audio, info = model.enhance(x, fs)                  # zero-shot blind BWE
+    audio, info = model.enhance(x, fs, filter=(1000.0, -40.0))  # informed
+    fc, A = model.estimate_filter(x, fs)
     clips = model.generate(n=1, seed=0)
     model8 = BABE.load("exp/22k_8s-850000.ckpt", precision="int8")
+    model = BABE.load(ckpt, denoiser_checkpoint="denoiser.ckpt")
+    audio, info = model.enhance(x, fs, denoise=True)    # STFT denoiser first
 
 The model runs on the card unless ``device="cpu"`` is asked for.  With
 ``precision="int8"`` the network's dilation stacks of at least 96 channels
 run the int8 stage (kernel K3, ``csrc/fused_stage_int8.cu``) and the rest
 stays in the model's compute dtype (kernels K1 and K2); the precision
 belongs to the loaded model, so two models of different precision live
-side by side in one process.  This slice serves inputs of at most one
-model segment at the model's sample rate; longer inputs, other sample rates
-and the denoiser raise ``NotImplementedError`` naming the slice that brings
-them.
+side by side in one process.
+
+``enhance`` takes a recording of any length at any sample rate: it is
+resampled to the model's rate, optionally run through the STFT denoiser
+(``denoise=True``, with ``denoiser_checkpoint=`` given at load), and
+restored in one segment when it fits one, else by the autoregressive chunk
+loop (``Tester._ar_loop``); a blind request estimates the filter on the
+first segment.
 """
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Sequence
 
 import numpy as np
@@ -31,6 +38,7 @@ import torch
 
 from babe_tpu_torch.config import default_config, make_config
 from babe_tpu_torch.models.cqtdiff import PRECISIONS
+from babe_tpu_torch.ops.resample import resample
 from babe_tpu_torch.testers.tester import Tester, read_checkpoint
 from babe_tpu_torch.utils.device import check_device
 
@@ -58,7 +66,7 @@ class BABE:
     """A loaded CQTDiff+ restoration model with the BABE samplers."""
 
     def __init__(self, args, checkpoint: str, device="cuda",
-                 precision: str | None = None):
+                 precision: str | None = None, denoiser_checkpoint=None):
         from babe_tpu_torch.setup import setup_diff_parameters, setup_network
 
         self.device = check_device(device)
@@ -67,13 +75,26 @@ class BABE:
         self._ckpt = checkpoint
         model = setup_network(args, precision=precision)
         diff = setup_diff_parameters(args, cqt_hpf=model.apply_hpf_DC)
-        self._tester = Tester(args, model, diff, device=self.device)
+        denoiser = None
+        if denoiser_checkpoint is not None:
+            from babe_tpu_torch.models.denoiser import setup_denoiser
+
+            args.tester.denoiser["checkpoint_path"] = str(denoiser_checkpoint)
+            denoiser = setup_denoiser(args, device=self.device)
+        self._denoiser = denoiser
+        # an LRU cache of testers by audio_len (each holds a CQT frame);
+        # the native-length tester is pinned
+        self._testers: OrderedDict[int, Tester] = OrderedDict()
+        self._testers_maxsize = 4
+        self._tester = Tester(args, model, diff, device=self.device,
+                              denoiser=denoiser)
         self._tester.load_checkpoint(checkpoint)
-        self._testers = {int(args.exp.audio_len): self._tester}
+        self._testers[int(args.exp.audio_len)] = self._tester
 
     def _tester_at(self, audio_len: int) -> Tester:
         """A tester whose CQT frame is built for ``audio_len`` samples and
         whose network is this model's (the weights are length-agnostic)."""
+        native_len = int(self.args.exp.audio_len)
         if audio_len not in self._testers:
             from babe_tpu_torch.setup import setup_diff_parameters
 
@@ -82,9 +103,18 @@ class BABE:
             args.exp["audio_len"] = audio_len
             model = base.model.with_audio_len(audio_len)
             diff = setup_diff_parameters(args, cqt_hpf=model.apply_hpf_DC)
-            t = Tester(args, model, diff, device=self.device)
+            t = Tester(args, model, diff, device=self.device,
+                       denoiser=self._denoiser)
             t.loaded, t.it = True, base.it
             self._testers[audio_len] = t
+            while len(self._testers) > self._testers_maxsize:
+                # evict the least recently used, never the native length
+                old = next((k for k in self._testers if k != native_len),
+                           None)
+                if old is None:
+                    break
+                del self._testers[old]
+        self._testers.move_to_end(audio_len)
         return self._testers[audio_len]
 
     @classmethod
@@ -102,13 +132,16 @@ class BABE:
         analytic-bound activation scales and per-output-channel weight
         scales, quantized once per loaded set of weights.  The guidance
         gradient through those stages is straight-through (the exact
-        stage's).  Another value raises ``ValueError``."""
+        stage's).  Another value raises ``ValueError``.
+
+        ``denoiser_checkpoint``: a ``.ckpt`` pickle of the STFT denoiser
+        (``{"params": tree}``, the JAX package's layout), built at
+        ``tester.denoiser``'s config on ``device``; ``enhance(...,
+        denoise=True)`` needs it.  A path that does not exist warns and
+        keeps a seeded init, as the JAX package does; a ``.pt`` raises."""
         if precision not in PRECISIONS:
             raise ValueError(f"precision must be 'bf16', 'int8' or None, "
                              f"got {precision!r}")
-        if denoiser_checkpoint is not None:
-            raise NotImplementedError(
-                "the STFT denoiser is not ported yet (a later slice)")
         check_device(device)
         base: list[str] = []
         saved = read_checkpoint(checkpoint).get("args")
@@ -128,7 +161,8 @@ class BABE:
         base.append("tester=blind_bwe")
         args = default_config(base + list(overrides))
         args.exp["remat"] = False
-        return cls(args, checkpoint, device=device, precision=precision)
+        return cls(args, checkpoint, device=device, precision=precision,
+                   denoiser_checkpoint=denoiser_checkpoint)
 
     @property
     def precision(self) -> str | None:
@@ -150,12 +184,13 @@ class BABE:
         return out.float().cpu().numpy()
 
     def _prep(self, audio, fs) -> np.ndarray:
+        """Mono float32 [1, T] at the model's sample rate."""
         x = np.atleast_2d(np.asarray(to_mono(np.asarray(audio)),
                                      dtype=np.float32))
-        if int(fs or self.fs) != self.fs:
-            raise NotImplementedError(
-                f"input at {fs} Hz: resampling to the model's {self.fs} Hz "
-                "is not ported yet (the DSP slice)")
+        in_fs = int(fs or self.fs)
+        if in_fs != self.fs:
+            x = resample(torch.as_tensor(x, device=self.device), in_fs,
+                         self.fs).cpu().numpy()
         return x
 
     def estimate_filter(self, audio, fs: int | None = None,
@@ -168,42 +203,53 @@ class BABE:
     def enhance(self, audio, fs: int | None = None, *, filter=None,
                 denoise: bool = False, seed: int | None = None,
                 _estimate_only: bool = False):
-        """Restore ``audio`` (1-D or [1, T], at most one model segment).
+        """Restore ``audio`` (1-D or [1, T], any length, any sample rate).
 
-        filter: None for zero-shot blind BWE (the filter is estimated), or
-            ``(fc, A)`` breakpoints for informed BWE.
-        Returns ``(enhanced [1, T], info)`` with the filter breakpoints in
-        ``info['fc']``/``info['A']`` and the sample rate in ``info['fs']``.
+        filter: None for zero-shot blind BWE (the filter is estimated on
+            the first segment), or ``(fc, A)`` breakpoints for informed BWE.
+        denoise: run the STFT denoiser first (needs
+            ``denoiser_checkpoint=`` at load).
+        Returns ``(enhanced [1, T] at the model's sample rate, info)`` with
+        the filter breakpoints in ``info['fc']``/``info['A']`` and the model's
+        sample rate in ``info['fs']``.
         """
-        if denoise:
-            raise NotImplementedError(
-                "denoise=True: the STFT denoiser is not ported yet")
         t = self._tester
         if seed is not None:
             t.seed(seed)
         x = self._prep(audio, fs)
+        if denoise:
+            if self._denoiser is None:
+                raise ValueError(
+                    "denoise=True needs denoiser_checkpoint= at load()")
+            x = t.apply_denoiser(torch.as_tensor(x, device=self.device))
+            x = x.cpu().numpy()
+        # normalise like the blind tester (sigma_norm), undone at the end
         sn = t.args.tester.blind_bwe.get("sigma_norm", "None")
         std = float(np.std(x))
         gain = (float(sn) / std) if sn not in (None, "None") and std > 0 else 1.0
         x = x * gain
         segL, L = t.audio_len, x.shape[-1]
-        if L > segL:
-            raise NotImplementedError(
-                f"input of {L} samples is longer than one model segment "
-                f"({segL}); the autoregressive long-input loop is not "
-                "ported yet")
-        seg = np.pad(x, ((0, 0), (0, segL - L))) if L < segL else x
-        y = torch.as_tensor(seg, device=self.device)
-        s = t.sampler()
-        if filter is None:
-            pred, est = s.predict_blind_bwe(t.next_key(), y)
-            est = est.cpu().numpy()
-            fc, A = est[0], est[1]
-            if _estimate_only:
-                return None, {"fc": fc, "A": A, "fs": self.fs}
-        else:
+        if filter is not None:
             fc = np.atleast_1d(np.asarray(filter[0], np.float32))
             A = np.atleast_1d(np.asarray(filter[1], np.float32))
-            pred = s.predict_bwe(t.next_key(), y, np.stack([fc, A]), "fc_A")
-        out = pred.float().cpu().numpy()[..., :L] / gain
-        return out, {"fc": fc, "A": A, "fs": self.fs}
+        else:
+            seg = x[..., :segL]
+            if seg.shape[-1] < segL:
+                seg = np.pad(seg, ((0, 0), (0, segL - seg.shape[-1])))
+            pred, est = t.sampler().predict_blind_bwe(
+                t.next_key(), torch.as_tensor(seg, device=self.device))
+            fc, A = est.cpu().numpy()
+            if _estimate_only:
+                return None, {"fc": fc, "A": A, "fs": self.fs}
+            if L <= segL:
+                out = pred.float().cpu().numpy()[..., :L] / gain
+                return out, {"fc": fc, "A": A, "fs": self.fs}
+        est = np.stack([fc, A])
+        if L <= segL:
+            seg = np.pad(x, ((0, 0), (0, segL - L))) if L < segL else x
+            out = t.sampler().predict_bwe(
+                t.next_key(), torch.as_tensor(seg, device=self.device), est,
+                "fc_A").float().cpu().numpy()[..., :L]
+        else:
+            out = t._ar_loop(x, est, "fc_A")[..., :L]
+        return out / gain, {"fc": fc, "A": A, "fs": self.fs}

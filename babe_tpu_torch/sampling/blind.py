@@ -16,6 +16,12 @@ Counterpart of ``babe_tpu/sampling/blind.py``.  Per Heun stage:
      Heun update.
 
 The observation STFT is computed once per request.
+
+``predict_bwe_AR`` is the informed step of the autoregressive long-input
+loop (``testers/tester.py::Tester._ar_loop``): the previous chunk's tail
+is an inpainting observation over the overlap, optionally held by a
+data-consistency replacement on a hann-feathered mask
+(``prepare_smooth_mask``, host numpy).
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from babe_tpu_torch import kernels as _k
@@ -262,3 +269,67 @@ class BlindSampler(Sampler):
                 gen, ylpf, lambda x: self.degradation_fcA(x, params),
                 x_init=x_init)
         return super().predict_bwe(gen, ylpf, filt, filt_type, x_init=x_init)
+
+    def predict_bwe_AR(self, gen, ylpf, y_masked, filt, filt_type: str, mask,
+                       smooth_mask_size: int = 0, x_init=None):
+        """Autoregressive chunk continuation: the composite observation
+        mask*y_masked + (1-mask)*ylpf under the degradation
+        mask*x + (1-mask)*lpf(x).  With ``smooth_mask_size`` > 0 the mask is
+        feathered over that many samples and every score is followed by a
+        data-consistency replacement of the feathered overlap by
+        ``y_masked``."""
+        if filt_type == "fc_A":
+            params = torch.as_tensor(filt, dtype=torch.float32,
+                                     device=ylpf.device)
+            base = lambda x: self.degradation_fcA(x, params)  # noqa: E731
+        elif filt_type == "firwin":
+            raise NotImplementedError(
+                "filter type 'firwin' needs ops/fir.py, which is not ported "
+                "yet (ROADMAP.md section 1, item 10); use 'fc_A'")
+        else:
+            raise NotImplementedError(filt_type)
+        dev = ylpf.device
+        mask = torch.as_tensor(mask, dtype=torch.float32, device=dev)
+        y_masked = torch.as_tensor(y_masked, dtype=torch.float32, device=dev)
+        y = mask * y_masked + (1 - mask) * ylpf
+        deg = lambda x: mask * x + (1 - mask) * base(x)  # noqa: E731
+        post = None
+        if smooth_mask_size > 0:
+            smooth = torch.as_tensor(
+                prepare_smooth_mask(mask.cpu().numpy(), smooth_mask_size),
+                device=dev)
+            y_sm = smooth * y_masked
+
+            def post(sc, x, t):
+                # data-consistency replacement on the feathered overlap
+                with torch.no_grad():
+                    x_hat = sc * t**2 + x
+                    x_hat = y_sm + x_hat - smooth * x_hat
+                    return (x_hat - x) / t**2
+
+        return self.predict_conditional(gen, y, deg, x_init=x_init,
+                                        score_postprocess=post)
+
+
+def prepare_smooth_mask(mask, size: int = 10) -> np.ndarray:
+    """Hann-feather the 1->0 and 0->1 steps of a binary mask [B, N] (host
+    numpy; the testers build their masks on the host).  The slicing is the
+    reference's: for a step within one window of either end, or a mask
+    that starts at 0, numpy refuses the assignment (ValueError)."""
+    m = np.asarray(mask)
+    B, N = m.shape
+    row = m[0].copy().astype(np.float32)
+    # torch.hann_window(2*size) is periodic: w[n] = 0.5 - 0.5 cos(pi n / size)
+    n = np.arange(2 * size)
+    hann = (0.5 - 0.5 * np.cos(np.pi * n / size)).astype(np.float32)
+    hann_left, hann_right = hann[:size], hann[size:]
+    out = row.copy()
+    prev = 1.0
+    for i in range(N):
+        if row[i] != prev:
+            if row[i] == 0:
+                out[i - size : i] = hann_right[:size]
+            else:
+                out[i : i + size] = hann_left[:size]
+        prev = row[i]
+    return np.broadcast_to(out[None], (B, N)).copy()

@@ -10,7 +10,10 @@ sigma = 0.
 
 Noise comes from an explicit ``torch.Generator`` on the sampler's device;
 every entry point takes an optional ``x_init`` (the initial state, already
-scaled by t[0]) in place of the first noise draw.
+scaled by t[0]) in place of the first noise draw.  ``predict_conditional``
+also takes a ``score_postprocess`` ``(score, x, t) -> score`` applied after
+every score evaluation (the autoregressive step's data-consistency
+replacement on its feathered overlap, ``blind.py``).
 """
 
 from __future__ import annotations
@@ -157,7 +160,8 @@ class Sampler:
             t = self.edm.create_schedule(cfg.T)
         return t.tolist(), self.edm.get_gamma(t).tolist()
 
-    def _run(self, gen, shape, y=None, degradation=None, x_init=None):
+    def _run(self, gen, shape, y=None, degradation=None, x_init=None,
+             score_postprocess=None):
         cfg = self.cfg
         dev = y.device if y is not None else self.device
         warm = (cfg.start_sigma is not None and y is not None
@@ -171,7 +175,10 @@ class Sampler:
                 x = y + x
 
         def score(x_, t_):
-            return self._score(x_, t_, y=y, degradation=degradation, gen=gen)
+            sc = self._score(x_, t_, y=y, degradation=degradation, gen=gen)
+            if score_postprocess is not None:
+                sc = score_postprocess(sc, x_, t_)
+            return sc
 
         def move(x_, t_i, g):
             t_hat = t_i + g * t_i
@@ -196,9 +203,10 @@ class Sampler:
     def predict_unconditional(self, gen, shape, x_init=None):
         return self._run(gen, shape, x_init=x_init)
 
-    def predict_conditional(self, gen, y, degradation, x_init=None):
+    def predict_conditional(self, gen, y, degradation, x_init=None,
+                            score_postprocess=None):
         return self._run(gen, y.shape, y=y, degradation=degradation,
-                         x_init=x_init)
+                         x_init=x_init, score_postprocess=score_postprocess)
 
     def predict_bwe(self, gen, ylpf, filt, filt_type: str, x_init=None):
         from babe_tpu_torch.sampling import degradations as D

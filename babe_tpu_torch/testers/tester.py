@@ -3,9 +3,11 @@
 Counterpart of the parts of ``babe_tpu/testers/tester.py`` that
 ``api.BABE`` uses: construction (tester-side EDM, sampler and blind
 configs), noise streams, checkpoint loading with a shape check against the
-built model, and the sampler factory.  The experiment modes (inpainting,
-formal tests, MUSHRA, the autoregressive long-input loop, ...) belong to
-later slices of the port.
+built model, the sampler factory, the STFT denoiser chain, the
+autoregressive long-input loop (``_ar_loop``) and the whole-recording mode
+that composes them (``test_real_blind_bwe_complete``).  The other
+experiment modes (inpainting, formal tests, MUSHRA, ...) belong to later
+slices of the port.
 """
 
 from __future__ import annotations
@@ -16,10 +18,16 @@ import pickle
 import numpy as np
 import torch
 
+from babe_tpu_torch.data.wavio import read_wav, to_mono
 from babe_tpu_torch.diffusion.edm import EDM, EDMParams
+from babe_tpu_torch.ops.resample import resample
 from babe_tpu_torch.sampling.blind import BlindConfig, BlindSampler
 from babe_tpu_torch.sampling.heun import SamplerConfig
+from babe_tpu_torch.utils.logging import MetricsLogger, write_audio_file
 from babe_tpu_torch.utils.weights import _flatten, load_flax, to_flax
+
+# samples dropped from the end of every autoregressive chunk's prediction
+AR_DISCARD_END = 200
 
 ORBAX_EXT = ".orbax"
 
@@ -76,9 +84,11 @@ def read_checkpoint(path: str) -> dict:
 
 
 class Tester:
-    def __init__(self, args, model, diff_params: EDM, device="cuda"):
+    def __init__(self, args, model, diff_params: EDM, device="cuda",
+                 denoiser=None):
         self.args = args
         self.model = model
+        self.denoiser = denoiser  # models.denoiser.MultiStageDenoiser
         self.device = torch.device(device)
         self.it = 0
         self.gen = torch.Generator().manual_seed(
@@ -93,6 +103,17 @@ class Tester:
         self.blind_cfg = BlindConfig.from_args(args)
         self.fs = int(args.exp.sample_rate)
         self.audio_len = int(args.exp.audio_len)
+        self._outputs = os.path.join(str(args.model_dir), "outputs")
+        # the output folder of each mode this slice ports
+        self.paths = {"complete": os.path.join(self._outputs, "complete")}
+        self._metrics = None
+
+    @property
+    def metrics(self) -> MetricsLogger:
+        """``<model_dir>/outputs/metrics.jsonl``, made at its first use."""
+        if self._metrics is None:
+            self._metrics = MetricsLogger(self._outputs)
+        return self._metrics
 
     # ------------------------------------------------------------- plumbing
 
@@ -173,3 +194,126 @@ class Tester:
         den, hpf = self._denoiser_fn()
         return BlindSampler(den, self.edm, self.scfg, self.blind_cfg,
                             hpf=hpf, device=self.device)
+
+    # ------------------------------------------------------------- helpers
+
+    def _host(self, t: torch.Tensor) -> np.ndarray:
+        return t.float().cpu().numpy()
+
+    def apply_denoiser(self, x: torch.Tensor) -> torch.Tensor:
+        """Chunked overlap-add denoising with a hamming cross-fade."""
+        assert self.denoiser is not None
+        return self.denoiser.apply_chunked_ola(x)
+
+    # ------------------------------------------- long-form (AR) restoration
+
+    def _ar_loop(self, degraded: np.ndarray, est_filter, ftype: str):
+        """Informed BWE of a whole recording [1, L] in chunks of one
+        segment: each chunk after the first continues the previous
+        prediction over ``complete_recording.overlap`` seconds (an
+        inpainting observation, feathered over 50 samples when
+        ``inpaint_DC`` is on), and every chunk's last 200 predicted samples
+        are discarded.  The last chunk is zero-padded to a segment."""
+        cr = self.args.tester.complete_recording
+        segL = self.audio_len
+        overlap = int(float(cr.overlap) * self.fs)
+        discard_end = AR_DISCARD_END
+        s = self.sampler()
+        dev = self.device
+        smooth = 50 if bool(cr.get("inpaint_DC", False)) else 0
+        mask = np.ones((1, segL), np.float32)
+        mask[:, overlap:] = 0
+
+        def run_ar(seg, y_masked, m):
+            return self._host(s.predict_bwe_AR(
+                self.next_key(), torch.as_tensor(seg, device=dev), y_masked,
+                est_filter, ftype, m, smooth_mask_size=smooth))
+
+        L = degraded.shape[-1]
+        final = np.zeros_like(degraded)
+        ix = 0
+        seg = torch.as_tensor(degraded[..., :segL], device=dev)
+        pred = self._host(s.predict_bwe(self.next_key(), seg, est_filter,
+                                        ftype))
+        prev = pred[..., : segL - discard_end]
+        final[..., : segL - discard_end] = prev
+        ix += segL - overlap - discard_end
+        while ix < L - segL - discard_end:
+            y_masked = np.zeros((1, segL), np.float32)
+            y_masked[..., :overlap] = prev[..., segL - overlap - discard_end:]
+            pred = run_ar(degraded[..., ix : ix + segL], y_masked, mask)
+            prev = pred[..., : segL - discard_end]
+            final[..., ix : ix + segL - discard_end] = prev
+            ix += segL - overlap - discard_end
+        # the last (possibly short) chunk: its overlap comes from the whole
+        # previous prediction's tail, and past the data it is zero-padded
+        seg = degraded[..., ix:]
+        y_masked = np.zeros((1, segL), np.float32)
+        y_masked[..., :overlap] = pred[..., -overlap:]
+        last_mask = mask.copy()
+        if seg.shape[-1] < segL:
+            seg_zp = np.pad(seg, ((0, 0), (0, segL - seg.shape[-1])))
+            y_masked[..., seg.shape[-1]:] = seg_zp[..., seg.shape[-1]:]
+            last_mask[..., seg.shape[-1]:] = 0
+        else:
+            seg_zp = seg[..., :segL]
+        pred = run_ar(seg_zp, y_masked, last_mask)
+        final[..., ix:] = pred[..., : seg.shape[-1]]
+        return final
+
+    def test_real_blind_bwe_complete(self, typefilter="fc_A",
+                                     use_denoiser=None):
+        """Whole-recording restoration of ``complete_recording.path``:
+        resample -> optional denoise -> normalise to
+        ``complete_recording.std`` -> optional extra noise at
+        ``SNR_extra_noise`` dB -> blind filter estimate on
+        ``n_segments_blindstep`` segments as one batch -> ``_ar_loop`` ->
+        undo the gain -> write the wav under ``paths['complete']``.
+        Returns (restored [1, L], estimated filter [2, K])."""
+        cr = self.args.tester.complete_recording
+        filename = str(cr.path)
+        d, fs = read_wav(filename)
+        degraded = np.atleast_2d(to_mono(d)).astype(np.float32)
+        if fs != self.fs:
+            degraded = self._host(resample(
+                torch.as_tensor(degraded, device=self.device), fs, self.fs))
+
+        if use_denoiser is None:
+            use_denoiser = bool(cr.get("use_denoiser", False))
+        if use_denoiser and self.denoiser is not None:
+            degraded = self._host(self.apply_denoiser(
+                torch.as_tensor(degraded, device=self.device)))
+
+        std = degraded.std(-1, keepdims=True)
+        target_std = float(cr.get("std", 0.1))
+        degraded = target_std * degraded / std
+
+        snr_extra = cr.get("SNR_extra_noise", "None")
+        if snr_extra not in (None, "None"):
+            snr = 10 ** (float(snr_extra) / 10)
+            sigma = np.sqrt(target_std**2 / snr)
+            degraded = degraded + sigma * np.random.default_rng(
+                0).standard_normal(degraded.shape).astype(np.float32)
+
+        segL = self.audio_len
+        ix_first = int(self.fs * float(cr.get("ix_start", 0)))
+        nseg = int(cr.get("n_segments_blindstep", 1))
+        rng = np.random.default_rng(0)
+        ys = [degraded[..., ix_first : ix_first + segL]]
+        for _ in range(nseg - 1):
+            ix = int(rng.integers(0, degraded.shape[-1] - segL))
+            ys.append(degraded[..., ix : ix + segL])
+        y = torch.as_tensor(np.concatenate(ys, axis=0), device=self.device)
+
+        _, est_filter = self.sampler().predict_blind_bwe(self.next_key(), y)
+        est_filter = self._host(est_filter)
+        self.metrics.log({"mode": "complete",
+                          "fc_est": est_filter[0].tolist(),
+                          "A_est": est_filter[1].tolist()})
+
+        final = self._ar_loop(degraded, est_filter, "fc_A")
+        final = final * std / target_std
+        n = os.path.splitext(os.path.basename(filename))[0] + typefilter
+        write_audio_file(final, self.fs, n + ".reconstructed",
+                         self.paths["complete"])
+        return final, est_filter

@@ -1,7 +1,7 @@
-"""Training observability: a JSONL metrics stream and the loss-by-sigma plot
-(matplotlib, when installed).  Counterpart of the training half of
-``babe_tpu/utils/logging.py``; its wandb mirror is not ported (a wandb run
-would contact a server: see ROADMAP.md)."""
+"""Observability: a JSONL metrics stream, the loss-by-sigma plot
+(matplotlib, when installed) and the testers' wav writer.  Counterpart of
+parts of ``babe_tpu/utils/logging.py``; its wandb mirror is not ported (a
+wandb run would contact a server: see ROADMAP.md)."""
 
 from __future__ import annotations
 
@@ -10,6 +10,8 @@ import os
 import time
 
 import numpy as np
+
+from babe_tpu_torch.data.wavio import write_wav
 
 
 def _mpl():
@@ -22,6 +24,19 @@ def _mpl():
         return plt
     except Exception:
         return None
+
+
+def write_audio_file(x, fs: int, name: str, path: str) -> str:
+    """``<path>/<name>.wav``; the items of a batch are concatenated."""
+    os.makedirs(path, exist_ok=True)
+    x = np.asarray(x)
+    if x.ndim == 2 and x.shape[0] > 1:
+        x = x.reshape(-1)
+    elif x.ndim == 2:
+        x = x[0]
+    if not name.endswith(".wav"):
+        name = name + ".wav"
+    return write_wav(os.path.join(path, name), x, fs)
 
 
 def plot_loss_by_sigma(means, stds, bins, out_path: str) -> str | None:

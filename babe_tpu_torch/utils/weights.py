@@ -10,6 +10,14 @@ kernels, (in, out) linear kernels; ``buffers['embedding']['RFF_freq']`` and
 ``buffers['freq_encodings_i']['embeddings']``).  The port's modules carry the
 same names, so a torch state-dict key is the JAX path joined with dots and
 the tensors need no transposition.
+
+The STFT denoiser (``models/denoiser.py``) crosses through its own pair,
+``load_denoiser_flax`` / ``denoiser_to_flax``: there the port is NCHW and
+the JAX package channels-last, so every 4-D ``kernel`` leaf becomes a
+``weight`` transposed by (3, 2, 0, 1): a conv kernel (kh, kw, in, out) to
+(out, in, kh, kw), and a transposed conv's (kh, kw, out, in) (flax's
+``transpose_kernel=True`` layout) to PyTorch's (in, out, kh, kw), with no
+flip.  Biases and ``freq_encoding_fembeddings`` cross as they are.
 """
 
 from __future__ import annotations
@@ -60,7 +68,10 @@ def to_flax(net: torch.nn.Module):
 def load_flax(net: torch.nn.Module, params, buffers=None) -> None:
     """Copy a JAX variable tree into ``net`` (shape-checked, every entry
     required)."""
-    sd = from_flax(params, buffers)
+    _load_checked(net, from_flax(params, buffers))
+
+
+def _load_checked(net: torch.nn.Module, sd: dict) -> None:
     own = net.state_dict()
     bad = [f"  {k}: checkpoint {tuple(sd[k].shape)} vs model "
            f"{tuple(own[k].shape)}"
@@ -74,6 +85,36 @@ def load_flax(net: torch.nn.Module, params, buffers=None) -> None:
                 bad + [f"  missing {k}" for k in missing]
                 + [f"  unexpected {k}" for k in extra]))
     net.load_state_dict(sd)
+
+
+def denoiser_from_flax(params) -> dict[str, torch.Tensor]:
+    """A JAX ``MultiStageDenoiseNet`` params tree -> the port's state
+    dict."""
+    out = {}
+    for k, v in _flatten(params).items():
+        v = np.asarray(v, dtype=np.float32)
+        if k.endswith(".kernel"):
+            k, v = k[:-len("kernel")] + "weight", v.transpose(3, 2, 0, 1)
+        out[k] = torch.from_numpy(np.array(v, order="C"))
+    return out
+
+
+def load_denoiser_flax(net: torch.nn.Module, params) -> None:
+    """Copy a JAX denoiser params tree into ``net`` (shape-checked, every
+    entry required)."""
+    _load_checked(net, denoiser_from_flax(params))
+
+
+def denoiser_to_flax(net: torch.nn.Module) -> dict:
+    """The port's denoiser network -> a JAX params tree of fp32 numpy
+    arrays."""
+    flat = {}
+    for k, v in net.state_dict().items():
+        v = v.detach().float().cpu().numpy()
+        if k.endswith(".weight"):
+            k, v = k[:-len("weight")] + "kernel", v.transpose(2, 3, 1, 0)
+        flat[k] = np.ascontiguousarray(v)
+    return _nest(flat)
 
 
 def to_tree(tensors: dict[str, torch.Tensor]) -> dict:

@@ -78,14 +78,23 @@ Phases (any failure exits non-zero; no phase catches and carries on):
                 CPU's run forced onto the card's at every int8 stage; then
                 the gradients of every parameter for one training step
                 (fixed sigma and noise, remat, opened gates) in fp32 and
-                bf16.
+                bf16; then the full-width STFT denoiser on one 5 s segment
+                in fp32 (its network and its audio).
   5. requests   the flagship model from a seed, written as a JAX-format
                 .ckpt, loaded twice with ``BABE.load`` on the card (bf16 and
                 ``precision="int8"``), each answering two blind ``enhance``
                 requests and one informed one on 184184 samples of seeded
                 low-passed audio.  The launch counters are zeroed just before
                 each model's requests and read just after.
-  6. train      ``python -m babe_tpu_torch.train``'s main at the flagship
+  6. long       one whole recording: the flagship (bf16) and the
+                full-width denoiser from seeds, ``BABE.load(ckpt,
+                denoiser_checkpoint=...)``, one blind ``enhance(x, 44100,
+                denoise=True)`` on 20 s of seeded 44.1 kHz audio (441000
+                samples after resampling): the denoiser, the blind estimate
+                on the first segment and 3 chunks of the autoregressive
+                loop, each timed; the counters zeroed just before and read
+                just after (runs alone as ``--phases identify,long``).
+  7. train      ``python -m babe_tpu_torch.train``'s main at the flagship
                 config (seeded 44.1 kHz wavs, exp=maestro22k_8s: batch 4,
                 184184 samples, resample factor 2, remat, bf16) for 5
                 steps, 2 untimed: s/step, audio-seconds trained per second,
@@ -94,7 +103,7 @@ Phases (any failure exits non-zero; no phase catches and carries on):
                 (remat recompute included), params and EMA that moved,
                 then the written .ckpt loaded with BABE.load on the card
                 answering one blind request.
-  7. quality    the same-seed 35-step unconditional trajectory of the
+  8. quality    the same-seed 35-step unconditional trajectory of the
                 flagship model (110250 samples, batch 4, gates opened with
                 N(0, 0.02^2)) in bf16 and in int8: the waveform's relative
                 divergence and the LSD between the two, reported, not gated.
@@ -1897,7 +1906,147 @@ def phase_check():
                 raise RuntimeError(f"check failed: {label} int8 forced "
                                    f"({dn} carrier)")
         _check_train_grads(m, edm, L, tol)
+        m.net.compute_dtype = torch.float32
+        _check_ar_step(m, L, tol)
         log(f"check {label}: {time.perf_counter() - t0:.1f} s")
+    _check_denoiser()
+
+
+# the denoiser's bar on the card, relative to the largest value of what is
+# compared: the network's output and the audio.  The sound reading on the
+# H100 is about 1.4e-6 (network) and 1e-7 (audio); the same run with
+# cuDNN's TF32 allowed is the control, and must fail it (PERF.md, PR 9).
+# The CPU tests hold the port to the JAX package at the looser 2e-4
+# absolute and 1e-3 relative (tests/test_torch_denoiser.py).
+DEN_TOL = 1e-5
+
+
+def _check_denoiser():
+    """The full-width STFT denoiser (conf/tester/blind_bwe.yaml, seed 0) on
+    one 5 s segment in fp32, card (cuDNN, TF32 off) against the CPU: the
+    network on the segment's spectrum and ``apply_model``'s audio, each to
+    ``DEN_TOL`` of its largest value.  The control runs the same on the
+    card with TF32 allowed; it must exceed the bar, so that the bar would
+    see TF32 (a lost ``_fp32_convs``)."""
+    import torch
+
+    import babe_tpu_torch.models.denoiser as dmod
+    from babe_tpu_torch.config import default_config
+    from babe_tpu_torch.ops.stft import stft
+
+    t0 = time.perf_counter()
+    dcfg = default_config(["tester=blind_bwe"]).tester.denoiser
+    dens = {dev: dmod.MultiStageDenoiser.from_config(dcfg, device=dev)
+            for dev in ("cpu", "cuda")}
+    d = dens["cpu"]
+    x = (0.05 * np.random.default_rng(41).standard_normal(
+        (1, d.segment))).astype(np.float32)
+    xt = torch.as_tensor(x)
+    X = stft(torch.nn.functional.pad(xt, (0, d.win)), d.win, d.hop)
+    Xr = torch.stack([X.real, X.imag], dim=1).transpose(2, 3).contiguous()
+
+    def run(dn, dev, convs):
+        with torch.no_grad():
+            with convs(torch.device(dev)):
+                net = dn.net(Xr.to(dev))[0].float().cpu()
+            return net, dn.apply_model(xt.to(dev)).float().cpu()
+
+    net, audio = {}, {}
+    for dev, dn in dens.items():
+        net[dev], audio[dev] = run(dn, dev, dmod._fp32_convs)
+    fp32 = dmod._fp32_convs
+    dmod._fp32_convs = lambda dev: torch.backends.cudnn.flags(  # noqa: E731
+        enabled=True, allow_tf32=True)
+    try:
+        net["tf32"], audio["tf32"] = run(dens["cuda"], "cuda",
+                                         dmod._fp32_convs)
+    finally:
+        dmod._fp32_convs = fp32
+    ms = cuda_time(lambda: dens["cuda"].apply_model(xt.cuda()), reps=3)
+    e_net = {k: errs(net[k], net["cpu"]) for k in ("cuda", "tf32")}
+    e_aud = {k: errs(audio[k], audio["cpu"]) for k in ("cuda", "tf32")}
+    sound = (bool(torch.isfinite(audio["cuda"]).all())
+             and e_net["cuda"][1] <= DEN_TOL and e_aud["cuda"][1] <= DEN_TOL)
+    seen = e_net["tf32"][1] > DEN_TOL and e_aud["tf32"][1] > DEN_TOL
+    log(f"check denoiser (full width: depth {dcfg.depth}, "
+        f"{dcfg.num_stages} stages, {d.net.conv2d_1_0.weight.shape[0]} "
+        f"channels at {tuple(Xr.shape[2:])} frames x bins, "
+        f"{sum(p.numel() for p in d.net.parameters())} parameters) fp32 "
+        f"card vs CPU on one {d.segment}-sample segment, tol {DEN_TOL:g} "
+        f"of the largest value: network max abs err "
+        f"{e_net['cuda'][0]:.3e} (max_rel {e_net['cuda'][1]:.3e}; its "
+        f"largest value {float(net['cpu'].abs().max()):.3e}), audio "
+        f"max_rel {e_aud['cuda'][1]:.3e}, l2_rel {e_aud['cuda'][2]:.3e}; "
+        f"control with TF32 allowed: network max_rel "
+        f"{e_net['tf32'][1]:.3e}, audio max_rel {e_aud['tf32'][1]:.3e}, "
+        f"l2_rel {e_aud['tf32'][2]:.3e} (must fail the bar: "
+        f"{'fails' if seen else 'PASSES'}); apply_model on the card "
+        f"{ms:.2f} ms per 5 s segment; {time.perf_counter() - t0:.1f} s "
+        f"{'ok' if sound and seen else 'FAIL'}")
+    if not (sound and seen):
+        raise RuntimeError("check failed: the STFT denoiser")
+
+
+def _check_ar_step(m, L: int, tol: float):
+    """One step of the chunk loop at flagship widths on a short segment in
+    fp32 (T = 3, no churn), card against the CPU from the same start: the
+    last chunk's form, zero-padded past its data, under the overlap mask
+    feathered over 50 samples (``predict_bwe_AR`` as ``_ar_loop`` runs it
+    with inpaint_DC).  It covers the composite observation, the
+    data-consistency replacement on the overlap and the guided scores on
+    the card's kernels.  The result is held to ``tol`` relative L2, and
+    the feathered overlap to the previous chunk's tail."""
+    import torch
+
+    from babe_tpu_torch.config import default_config
+    from babe_tpu_torch.diffusion.edm import EDM
+    from babe_tpu_torch.testers.tester import Tester
+    from babe_tpu_torch.utils.weights import to_flax
+
+    t0 = time.perf_counter()
+    args = default_config(["tester=blind_bwe", f"exp.audio_len={L}",
+                           "exp.remat=false", "tester.T=3",
+                           "tester.diff_params.Schurn=0"])
+    fs = int(args.exp.sample_rate)
+    overlap = int(float(args.tester.complete_recording.overlap) * fs)
+    n_data = 3 * L // 4
+    mask = np.ones((1, L), np.float32)
+    mask[:, overlap:] = 0
+    y_masked = np.zeros((1, L), np.float32)
+    y_masked[:, :overlap] = _lowpassed_audio(overlap, fs, seed=51)
+    ylpf = np.zeros((1, L), np.float32)
+    ylpf[:, :n_data] = _lowpassed_audio(n_data, fs, seed=50)
+    filt = np.asarray([[1000.0], [-40.0]], np.float32)
+    params, buffers = to_flax(m.net)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        t = Tester(args, m, EDM.from_config(args, cqt_hpf=m.apply_hpf_DC),
+                   device=dev)
+        t.set_variables(params, buffers)
+        if dev == "cpu":
+            y = mask * y_masked + (1 - mask) * ylpf
+            t_0 = float(t.edm.create_schedule_from_initial_t(
+                t.scfg.start_sigma, t.scfg.T)[0])
+            x0 = (y + t_0 * np.random.default_rng(52).standard_normal(
+                y.shape)).astype(np.float32)
+        out[dev] = t.sampler().predict_bwe_AR(
+            torch.Generator(device=dev).manual_seed(0),
+            torch.as_tensor(ylpf, device=dev), y_masked, filt, "fc_A", mask,
+            smooth_mask_size=50,
+            x_init=torch.as_tensor(x0, device=dev)).float().cpu()
+    e = errs(out["cuda"], out["cpu"])
+    held = errs(out["cuda"][:, :overlap - 50],
+                torch.as_tensor(y_masked[:, :overlap - 50]))
+    good = (bool(torch.isfinite(out["cuda"]).all()) and e[2] <= tol
+            and held[1] <= 1e-3)
+    log(f"check AR step (flagship widths, {L} samples, fp32, T=3, overlap "
+        f"{overlap} feathered over 50, data to {n_data}): card vs CPU "
+        f"l2_rel={e[2]:.3e} max_rel={e[1]:.3e} (tol {tol:g} l2_rel); the "
+        f"overlap held to the previous tail, max_rel {held[1]:.3e} (tol "
+        f"1e-3); {time.perf_counter() - t0:.1f} s "
+        f"{'ok' if good else 'FAIL'}")
+    if not good:
+        raise RuntimeError("check failed: the AR step")
 
 
 def _check_train_grads(m, edm, L: int, tol: float):
@@ -1975,6 +2124,21 @@ def _lowpassed_audio(L: int, fs: int, seed: int) -> np.ndarray:
     return apply_filter(torch.as_tensor(x)[None], H, 4096)[0].numpy()
 
 
+def _flagship_ckpt(args, tmpdir: str) -> str:
+    """The flagship network of ``args`` from seed 0, written into
+    ``tmpdir`` as a JAX-format ``.ckpt`` (params, buffers, EMA, args)."""
+    from babe_tpu_torch.models.cqtdiff import CQTDiffPlus
+    from babe_tpu_torch.utils.weights import to_flax
+
+    model = CQTDiffPlus.from_config(args).init(seed=0, device="cpu")
+    params, buffers = to_flax(model.net)
+    path = os.path.join(tmpdir, "flagship-seed0.ckpt")
+    with open(path, "wb") as f:
+        pickle.dump({"it": 0, "params": params, "buffers": buffers,
+                     "ema": params, "args": args.to_dict()}, f)
+    return path
+
+
 def phase_requests(results: dict, T: int = 35, n_blind: int = 2):
     """Two blind requests and one informed request through each of two
     loads of the same checkpoint, bf16 and int8.  Each model's run is one
@@ -1984,20 +2148,12 @@ def phase_requests(results: dict, T: int = 35, n_blind: int = 2):
     from babe_tpu_torch import kernels
     from babe_tpu_torch.api import BABE
     from babe_tpu_torch.config import default_config
-    from babe_tpu_torch.models.cqtdiff import CQTDiffPlus
-    from babe_tpu_torch.utils.weights import to_flax
 
     args = default_config(["tester=blind_bwe"])
     L, fs = int(args.exp.audio_len), int(args.exp.sample_rate)
     t0 = time.perf_counter()
-    model = CQTDiffPlus.from_config(args).init(seed=0, device="cpu")
-    params, buffers = to_flax(model.net)
     tmpdir = tempfile.mkdtemp(prefix="babe_smoke_")
-    path = os.path.join(tmpdir, "flagship-seed0.ckpt")
-    with open(path, "wb") as f:
-        pickle.dump({"it": 0, "params": params, "buffers": buffers,
-                     "ema": params, "args": args.to_dict()}, f)
-    del model
+    path = _flagship_ckpt(args, tmpdir)
     models = {}
     for prec in ("bf16", "int8"):
         t1 = time.perf_counter()
@@ -2051,6 +2207,142 @@ def phase_requests(results: dict, T: int = 35, n_blind: int = 2):
                      if k not in DW_KERNELS})
     for k in ("fused_stage_int8", "stage_int8_operand"):
         launches[k] = results["launches_int8"][k]
+
+
+LONG_FS = 44100       # the long request's input rate (resampled to 22.05k)
+LONG_SECONDS = 20.0
+
+
+def _spied(spies: list, runs: list):
+    """Patch each (owner, method, label) of ``spies`` to append (label,
+    seconds between card syncs) to ``runs``; returns the undo list."""
+    import torch
+
+    undo = []
+    for owner, name, label in spies:
+        orig = getattr(owner, name)
+
+        def timed(*a, _orig=orig, _label=label, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _orig(*a, **k)
+            torch.cuda.synchronize()
+            runs.append((_label, time.perf_counter() - t0))
+            return out
+
+        setattr(owner, name, timed)
+        undo.append((owner, name, orig))
+    return undo
+
+
+def phase_long(results: dict, T: int = 35):
+    """One blind request with the denoiser on a whole recording: 20 s of
+    seeded 44.1 kHz audio (low-passed tones plus noise) through
+    ``BABE.load(ckpt, denoiser_checkpoint=...).enhance(x, 44100,
+    denoise=True)`` on the flagship in bf16 and the full-width denoiser
+    (conf/tester/blind_bwe.yaml: depth 6, 3 dense layers, 2 stages, 513
+    bins, window 1024, hop 256, 5 s segments), both from seeds.  The
+    input is resampled to 441000 samples, denoised, its filter estimated
+    on the first segment, and restored by the chunk loop.  The counters
+    are zeroed just before the request and read just after; every bf16
+    path kernel must have launched, and the sampler must have run once
+    for the estimate and once per chunk."""
+    import torch
+
+    from babe_tpu_torch import kernels
+    from babe_tpu_torch.api import BABE
+    from babe_tpu_torch.config import default_config
+    from babe_tpu_torch.models.denoiser import MultiStageDenoiser
+    from babe_tpu_torch.sampling.blind import BlindSampler
+    from babe_tpu_torch.utils.weights import denoiser_to_flax
+
+    args = default_config(["tester=blind_bwe"])
+    fs = int(args.exp.sample_rate)
+    t0 = time.perf_counter()
+    tmpdir = tempfile.mkdtemp(prefix="babe_smoke_")
+    path = _flagship_ckpt(args, tmpdir)
+    den = MultiStageDenoiser.from_config(args.tester.denoiser, device="cpu")
+    dpath = os.path.join(tmpdir, "denoiser-seed0.ckpt")
+    with open(dpath, "wb") as f:
+        pickle.dump({"params": denoiser_to_flax(den.net)}, f)
+    del den
+    m = BABE.load(path, overrides=[f"tester.T={T}"], denoiser_checkpoint=dpath)
+    for p_ in (path, dpath):
+        os.remove(p_)
+    os.rmdir(tmpdir)
+    n_den = sum(p.numel() for p in m._denoiser.net.parameters())
+    dtype = str(m._tester.model.net.compute_dtype).split(".")[-1]
+    log(f"long: flagship (seed 0, {dtype}) and denoiser (seed 0, {n_den} "
+        f"parameters) written and loaded on {m.device} in "
+        f"{time.perf_counter() - t0:.1f} s; tester.T={T}")
+    n_in = int(LONG_SECONDS * LONG_FS)
+    x = _lowpassed_audio(n_in, LONG_FS, seed=30)
+    x = x + (0.003 * np.random.default_rng(31).standard_normal(n_in)).astype(
+        np.float32)
+    L = int(math.ceil(n_in * fs / LONG_FS))
+    runs: list = []
+    den_cls = type(m._denoiser)
+    undo = _spied([(BlindSampler, "predict_blind_bwe", "blind"),
+                   (BlindSampler, "predict_bwe", "chunk"),
+                   (BlindSampler, "predict_bwe_AR", "chunk"),
+                   (den_cls, "apply_chunked_ola", "denoiser"),
+                   (den_cls, "apply_model", "denoiser segment")], runs)
+    try:
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out, info = m.enhance(x, LONG_FS, denoise=True, seed=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        counts = dict(kernels.LAUNCHES)
+    finally:
+        for owner, name, orig in undo:
+            setattr(owner, name, orig)
+    secs = {k: [t for lab, t in runs if lab == k]
+            for k in ("blind", "chunk", "denoiser", "denoiser segment")}
+    fin = (bool(np.isfinite(out).all()) and np.isfinite(info["fc"]).all()
+           and np.isfinite(info["A"]).all())
+    sampler_runs = len(secs["blind"]) + len(secs["chunk"])
+    log(f"long request ({dtype}, blind + denoise): {n_in} samples at "
+        f"{LONG_FS} Hz -> {out.shape[-1]} at {fs} Hz, wall {wall:.2f} s, "
+        f"realtime factor {LONG_SECONDS / wall:.3f}x, "
+        f"fc={np.round(info['fc'], 1).tolist()} "
+        f"A={np.round(info['A'], 2).tolist()}, out shape {out.shape} "
+        f"finite={fin}")
+    log(f"long: denoiser {sum(secs['denoiser']):.3f} s over "
+        f"{len(secs['denoiser segment'])} segments of "
+        f"{m._denoiser.segment / fs:g} s (per segment "
+        f"{[round(t, 4) for t in secs['denoiser segment']]} s); blind "
+        f"step {sum(secs['blind']):.2f} s; chunks "
+        f"{[round(t, 2) for t in secs['chunk']]} s; sampler runs "
+        f"{sampler_runs} = 1 blind + {len(secs['chunk'])} chunks "
+        f"(expected 1 + 3)")
+    log(f"launches during the long request: {counts}")
+    if not (fin and out.shape == (1, L) and L == 441000):
+        raise RuntimeError(f"long request gave shape {out.shape} (want "
+                           f"(1, 441000)) or a non-finite result")
+    if not (len(secs["blind"]) == 1 and len(secs["denoiser"]) == 1
+            and len(secs["chunk"]) == 3):
+        raise RuntimeError(f"long request ran {sampler_runs} sampler runs "
+                           f"and {len(secs['denoiser'])} denoiser passes "
+                           f"(want 1 + 3 and 1)")
+    for name in BF16_PATH:
+        if counts[name] <= 0:
+            raise RuntimeError(f"kernel {name} never launched on the long "
+                               f"path")
+    if counts["fused_stage_int8"] or counts["stage_int8_operand"]:
+        raise RuntimeError("the bf16 model launched the int8 stage")
+    results["long"] = {"wall_s": wall, "rtf": LONG_SECONDS / wall,
+                       "denoiser_s": sum(secs["denoiser"]),
+                       "blind_s": sum(secs["blind"]),
+                       "chunk_s": secs["chunk"]}
+    results["launches_long"] = counts
+    launches = results.setdefault("launches", {})
+    for k in BF16_PATH:
+        if k not in DW_KERNELS:
+            launches.setdefault(k, counts[k])
+    del m
+    torch.cuda.empty_cache()
 
 
 def train_launches_per_step(net) -> dict:
@@ -2391,8 +2683,8 @@ def phase_profile():
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--phases",
-                   default="identify,kernels,probe,check,requests,train,"
-                           "quality",
+                   default="identify,kernels,probe,check,requests,long,"
+                           "train,quality",
                    help="comma list; 'profile' (not run by default) breaks "
                         "one guided evaluation down")
     a = p.parse_args(argv)
@@ -2424,6 +2716,8 @@ def main(argv=None) -> int:
         phase_check()
     if "requests" in phases:
         phase_requests(results)
+    if "long" in phases:
+        phase_long(results)
     if "train" in phases:
         phase_train(results)
     if "quality" in phases:
@@ -2445,7 +2739,9 @@ def main(argv=None) -> int:
                          >= r.get("bytes_ms", 0.0) else "bytes"),
             "library_ms": r.get("library_ms"),
             "check": "ok" if r else "not run",
-            "launches_from": LAUNCHES_FROM.get(name, "the bf16 requests"),
+            "launches_from": LAUNCHES_FROM.get(name, (
+                "the bf16 requests" if "requests" in phases
+                else "the long request")),
             "per": PER.get(name, "one guided evaluation, bf16, main-path "
                                  "shapes")})
     log(f"card: {smi_line()}")

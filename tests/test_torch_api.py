@@ -1,7 +1,9 @@
 """The port's library API on a checkpoint written by the JAX package: load,
-blind and informed ``enhance``, ``estimate_filter``, ``generate``, the
-errors of what this slice does not serve yet, and the port's independence
-from JAX (no module of jax or babe_tpu is imported or named)."""
+blind and informed ``enhance`` (one segment, long inputs through the chunk
+loop, a foreign sample rate, the denoiser chain), ``estimate_filter``,
+``generate``, the tester cache, the errors of what the port does not serve
+yet, and the port's independence from JAX (no module of jax or babe_tpu is
+imported or named)."""
 
 import os
 import pathlib
@@ -27,7 +29,8 @@ NET = ["exp.audio_len=4096", "exp.use_bf16=false", "network.Ns=[8,8,16]",
 TESTER = ["tester.T=2", "tester.blind_bwe.optimization.max_iter=3",
           "tester.blind_bwe.initial_conditions.fc=[300]",
           "tester.blind_bwe.initial_conditions.A=[-20]",
-          "tester.blind_bwe.NFFT=512"]
+          "tester.blind_bwe.NFFT=512",
+          "tester.complete_recording.overlap=0.02"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -98,17 +101,76 @@ def test_generate_is_finite_and_seeded(model):
     np.testing.assert_array_equal(a, b)
 
 
-def test_what_this_slice_does_not_serve_raises(model, ckpt):
-    with pytest.raises(NotImplementedError):
-        model.enhance(_audio(5000), 22050)  # longer than one segment
-    with pytest.raises(NotImplementedError):
-        model.enhance(_audio(4000), 44100)  # foreign sample rate
-    with pytest.raises(NotImplementedError):
-        model.enhance(_audio(4000), 22050, denoise=True)
+def test_what_this_slice_does_not_serve_raises(model, ckpt, tmp_path):
     with pytest.raises(ValueError):
         BABE.load(ckpt, overrides=TESTER, precision="fp8", device="cpu")
     with pytest.raises(NotImplementedError):
         BABE.load("weights.pt", device="cpu")
+    pt = tmp_path / "denoiser.pt"
+    pt.write_bytes(b"a reference torch checkpoint")
+    with pytest.raises(NotImplementedError, match="item 6"):
+        BABE.load(ckpt, overrides=TESTER, denoiser_checkpoint=str(pt),
+                  device="cpu")
+    with pytest.raises(ValueError, match="denoiser_checkpoint"):
+        model.enhance(_audio(4000), 22050, denoise=True)
+
+
+def test_enhance_long_ar_path(model):
+    x = _audio(10000, seed=4)  # > audio_len: the chunk loop
+    out, info = model.enhance(x, 22050, filter=(600.0, -25.0), seed=4)
+    assert out.shape == (1, 10000) and np.isfinite(out).all()
+    out, info = model.enhance(x, 22050, seed=5)  # blind, then the loop
+    assert out.shape == (1, 10000) and np.isfinite(out).all()
+    assert np.isfinite(info["fc"]).all() and np.isfinite(info["A"]).all()
+
+
+def test_enhance_resamples_input(model):
+    x = 0.05 * np.random.default_rng(3).standard_normal(2000).astype(
+        np.float32)
+    out, info = model.enhance(x, 44100, filter=(500.0, -20.0), seed=5)
+    assert out.shape == (1, 1000) and np.isfinite(out).all()
+    assert info["fs"] == 22050
+
+
+def test_enhance_with_denoiser_chain(ckpt, tmp_path):
+    from babe_tpu_torch.models.denoiser import MultiStageDenoiser
+    from babe_tpu_torch.utils.weights import denoiser_to_flax
+
+    den = MultiStageDenoiser(depth=2, num_tfc=2, num_stages=2, f_dim=65,
+                             stft_win_size=128, stft_hop_size=32,
+                             segment_seconds=0.2, seed=1, device="cpu")
+    dpath = tmp_path / "den.ckpt"
+    with open(dpath, "wb") as f:
+        pickle.dump({"params": denoiser_to_flax(den.net)}, f)
+    m = BABE.load(ckpt, overrides=TESTER + [
+        "tester.denoiser.depth=2", "tester.denoiser.num_tfc=2",
+        "tester.denoiser.num_stages=2", "tester.denoiser.f_dim=65",
+        "tester.denoiser.stft_win_size=128",
+        "tester.denoiser.stft_hop_size=32",
+        "tester.denoiser.segment_size=0.2"],
+        denoiser_checkpoint=str(dpath), device="cpu")
+    x = _audio(3000, seed=6)
+    out, info = m.enhance(x, 22050, filter=(700.0, -25.0), denoise=True,
+                          seed=6)
+    assert out.shape == (1, 3000) and np.isfinite(out).all()
+    plain, _ = m.enhance(x, 22050, filter=(700.0, -25.0), seed=6)
+    assert not np.allclose(out, plain)  # the denoiser ran first
+
+
+def test_denoise_without_denoiser_raises(model):
+    with pytest.raises(ValueError):
+        model.enhance(np.zeros(1000, np.float32), 22050, denoise=True)
+
+
+def test_tester_cache_is_bounded(model):
+    """An LRU cache of testers by length; the native length is pinned."""
+    native = int(model.args.exp.audio_len)
+    for L in (native + 256, native + 512, native + 768, native + 1024):
+        model._tester_at(L)
+    assert len(model._testers) <= model._testers_maxsize
+    assert native in model._testers
+    assert native + 1024 in model._testers
+    assert native + 256 not in model._testers
 
 
 def test_mismatched_checkpoint_names_parameters(ckpt):
@@ -125,7 +187,8 @@ def test_default_device_is_the_card(ckpt):
 
 
 def test_import_leaves_jax_and_babe_tpu_out():
-    code = ("import sys, babe_tpu_torch.api, babe_tpu_torch.kernels; "
+    code = ("import sys, babe_tpu_torch.api, babe_tpu_torch.kernels, "
+            "babe_tpu_torch.models.denoiser; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'babe_tpu')); "
             "print(bad); sys.exit(1 if bad else 0)")
