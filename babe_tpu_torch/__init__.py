@@ -15,7 +15,9 @@ The hot kernels of the sampling path are hand-written CUDA for sm_90a
   * ``ops.conv_kernels.fused_stage_int8`` the same stage with an int8 conv
     (models loaded with ``precision="int8"``)
 
-Library entry point: ``babe_tpu_torch.api.BABE``.
+Library entry point: ``babe_tpu_torch.api.BABE``; command lines:
+``python -m babe_tpu_torch.train`` and ``python -m babe_tpu_torch.test``
+(the counterparts of the repository's ``train.py`` and ``test.py``).
 """
 
 __version__ = "0.1.0"

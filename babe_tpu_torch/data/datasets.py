@@ -1,17 +1,22 @@
-"""Training streams: infinite sample generators batched by ``Batcher``.
+"""Training streams batched by ``Batcher``, and the testers' test sets.
 
-Counterpart of the training half of ``babe_tpu/data/datasets.py``, on its
-Python path: a random file, then 8 random crops of it, drawn with Python's
-``random.Random(seed)`` in the same order as the JAX package draws them, so
-one seed gives the same crops in both packages.  The JAX package's native
-C++ loader (``babe_tpu/native``) is not ported; ``setup_dataset`` says so
-and reads with the Python path.
+Counterpart of ``babe_tpu/data/datasets.py``, on its Python path.  The
+training streams are infinite: a random file, then 8 random crops of it,
+drawn with Python's ``random.Random(seed)`` in the same order as the JAX
+package draws them, so one seed gives the same crops in both packages.  The
+JAX package's native C++ loader (``babe_tpu/native``) is not ported;
+``setup_dataset`` says so and reads with the Python path.
 
   * ``AudioFolderDataset``: a flat folder of *.wav,
   * ``MaestroDataset`` / ``MaestroDatasetFs``: MAESTRO v3 by year and split
     (the latter yields (segment, native fs) pairs, resampled later),
   * ``CocoChoralesDataset``: random 1-4 stem mixtures,
   * overfit mode: one 50 s excerpt looped.
+
+The test sets (``setup_dataset_test``) are lists of (audio, fs, name):
+``AudioFolderDatasetTest`` (a folder, cropped with numpy's
+``default_rng(seed)``) and ``MaestroDatasetTestChunks`` (MAESTRO's test
+split, from 10 s in).
 """
 
 from __future__ import annotations
@@ -123,6 +128,62 @@ class MaestroDatasetFs(MaestroDataset):
                 yield seg, sr
 
 
+class MaestroDatasetTestChunks:
+    """MAESTRO test split: the first ``num_samples`` files, each cropped to
+    ``dset.load_len`` samples from 10 s in; items (audio, fs, name)."""
+
+    def __init__(self, dset_args, num_samples=4, seed=42):
+        years = set(int(y) for y in dset_args.years)
+        files = _maestro_filelist(str(dset_args.path), years, "test")
+        self.seg_len = int(dset_args.load_len)
+        self.items = []
+        for file in files[:num_samples]:
+            data, sr = read_wav(file)
+            data = to_mono(data)
+            self.items.append((data[10 * sr:10 * sr + self.seg_len], sr,
+                               os.path.basename(file)))
+
+    def __getitem__(self, idx):
+        return self.items[idx]
+
+    def __len__(self):
+        return len(self.items)
+
+
+class AudioFolderDatasetTest:
+    """A folder test set (``dset.test.path``): the first ``num_samples``
+    wavs, each cropped at a random start (numpy ``default_rng(seed)``) or
+    tiled to ``seg_len``; items (audio, fs, name)."""
+
+    def __init__(self, dset_args, fs=44100, seg_len=131072, num_samples=4,
+                 seed=42):
+        rng = np.random.default_rng(seed)
+        files = sorted(glob.glob(os.path.join(str(dset_args.test.path),
+                                              "*.wav")))
+        assert files, "error in dataloading: empty or nonexistent folder"
+        stereo = bool(dset_args.test.get("stereo", False))
+        self.items = []
+        for file in files[:num_samples]:
+            data, sr = read_wav(file)
+            data = data.T if data.ndim == 2 else data
+            if data.shape[-1] >= seg_len:
+                idx = int(rng.integers(0, data.shape[-1] - seg_len))
+                data = data[..., idx:idx + seg_len]
+            else:
+                reps = seg_len // data.shape[-1] + 1
+                data = np.tile(data, reps)[..., :seg_len]
+            if not stereo and data.ndim > 1:
+                data = data.mean(axis=0)
+            self.items.append((data.astype(np.float32), sr,
+                               os.path.basename(file)))
+
+    def __getitem__(self, idx):
+        return self.items[idx]
+
+    def __len__(self):
+        return len(self.items)
+
+
 class CocoChoralesDataset:
     """Random 1-4 stem mixtures from per-track stem folders."""
 
@@ -223,3 +284,18 @@ def setup_dataset(args) -> Batcher:
     loader_batch = int(args.exp.batch) * int(
         args.exp.get("num_accumulation_rounds", 1))
     return Batcher(ds, loader_batch)
+
+
+def setup_dataset_test(args):
+    """The test set of ``args.dset.test`` (its ``callable`` resolved by name
+    through ``babe_tpu_torch.setup``): ``dset.test.num_samples`` items of
+    (audio, fs, name)."""
+    from babe_tpu_torch.setup import test_dataset_class
+
+    dcfg = args.dset
+    cls = test_dataset_class(dcfg.test.callable)
+    num = int(args.get_path("dset.test.num_samples", 4))
+    if cls is MaestroDatasetTestChunks:
+        return cls(dcfg, num_samples=num)
+    return cls(dcfg, fs=int(args.exp.sample_rate),
+               seg_len=int(args.exp.audio_len), num_samples=num)

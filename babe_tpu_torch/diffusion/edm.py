@@ -69,8 +69,8 @@ class EDM:
         dp = args.diff_params
         if bool(dp.get_path("aweighting.use_aweighting", False)):
             raise NotImplementedError(
-                "A-weighted EDM loss is not ported yet: it needs ops/fir.py "
-                "(ROADMAP.md)")
+                "A-weighted EDM loss is not ported yet: it needs "
+                "ops/aweighting.py (ROADMAP.md)")
         return cls(EDMParams.from_config(dp), cqt_hpf=cqt_hpf)
 
     # ------------------------------------------------------------ precond

@@ -18,7 +18,8 @@ Training at the flagship config uses it; serving does not.
 
 ``precision`` is an attribute of the network: ``"int8"`` puts every fused
 (5,3) dilation stack with at least ``INT8_MINC`` channels (96, the JAX
-package's default) in int8, the configuration ``BABE_PRECISION=int8
+package's default; the environment's ``BABE_INT8_MINC``, the JAX package's
+knob, overrides it when the precision is set) in int8, the configuration ``BABE_PRECISION=int8
 BABE_INT8_FUSED=1`` of the JAX package with its analytic-bound scales;
 everything else (the narrower stacks, the pyramid convs, every 1x1, the
 CQT) keeps the compute dtype.  ``None`` and ``"bf16"`` run every stack in
@@ -27,6 +28,7 @@ the compute dtype.
 
 from __future__ import annotations
 
+import os
 from typing import Sequence
 
 import torch
@@ -129,9 +131,10 @@ class CQTDiffPlusNet(nn.Module):
             raise ValueError(f"precision must be 'bf16', 'int8' or None, "
                              f"got {precision!r}")
         self.precision = precision
+        minc = int(os.environ.get("BABE_INT8_MINC", INT8_MINC))
         for m in self.modules():
             if isinstance(m, ResnetBlock) and m.fused:
-                m.set_int8(precision == "int8" and m.N >= INT8_MINC)
+                m.set_int8(precision == "int8" and m.N >= minc)
 
     def reset_parameters(self, gen: torch.Generator | None = None) -> None:
         """Seeded EDM init of every weight and RFF buffer (on the CPU

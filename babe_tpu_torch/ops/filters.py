@@ -1,13 +1,19 @@
-"""Parametric degradation filter and the blind-BWE fit objective, in PyTorch.
+"""Parametric degradation filters and frequency-weighted norms, in PyTorch.
 
-Counterpart of ``babe_tpu/ops/filters.py`` (``design_filter``,
-``_freq_weighting``, ``apply_filter_and_norm_STFTmag_fweighted``).  All
-functions are differentiable with autograd.
+Counterpart of ``babe_tpu/ops/filters.py``: the piecewise log-log lowpass
+``design_filter`` (and ``design_filter_G`` with a broadband gain), the
+STFT-domain degradation ``apply_filter_fcA``, the STFT-distance guidance
+norms, the blind-BWE fit objective and the filter-estimation metric
+``filter_db_mse``.  All functions are differentiable with autograd.
 """
 
 from __future__ import annotations
 
 import torch
+
+from babe_tpu_torch.ops.stft import apply_filter, apply_stft
+
+_EPS = 1e-8
 
 
 def design_filter(fc, A, f: torch.Tensor) -> torch.Tensor:
@@ -37,6 +43,20 @@ def design_filter(fc, A, f: torch.Tensor) -> torch.Tensor:
     return H
 
 
+def design_filter_G(fc, A, G, f: torch.Tensor) -> torch.Tensor:
+    """``design_filter`` times a broadband gain of G dB."""
+    G = torch.as_tensor(G, dtype=f.dtype, device=f.device)
+    return design_filter(fc, A, f) * 10.0 ** (G / 20.0)
+
+
+def apply_filter_fcA(x: torch.Tensor, filter_params, freqs: torch.Tensor,
+                     nfft: int) -> torch.Tensor:
+    """Degrade ``x`` with the parametric lowpass of ``filter_params``
+    [2, K] (fc, A) by an STFT-domain multiply."""
+    H = design_filter(filter_params[0], filter_params[1], freqs)
+    return apply_filter(x, H, nfft)
+
+
 def _freq_weighting(freqs01: torch.Tensor, kind: str) -> torch.Tensor:
     """Frequency weighting curves over a [0, 1] grid."""
     if kind in (None, "None", "none"):
@@ -58,11 +78,49 @@ def _freq_weighting(freqs01: torch.Tensor, kind: str) -> torch.Tensor:
     return curves[kind](freqs01)
 
 
+def _weights(n_freq: int, kind: str, device) -> torch.Tensor:
+    """The weighting curve over ``n_freq`` bins, as a column [F, 1]."""
+    return _freq_weighting(torch.linspace(0.0, 1.0, n_freq, device=device),
+                           kind)[:, None]
+
+
+def apply_norm_STFT_fweighted(y, den_rec, freq_weight="linear", nfft=1024):
+    """L2 distance between the complex STFTs of ``den_rec`` and ``y``,
+    each frequency weighted."""
+    X = apply_stft(den_rec, nfft)
+    Xref = apply_stft(y, nfft)
+    d = (X - Xref) * _weights(X.shape[-2], freq_weight, X.device)
+    return torch.sqrt(torch.sum(d.abs() ** 2))
+
+
+def apply_norm_STFTmag_fweighted(y, den_rec, freq_weight="linear", nfft=1024,
+                                 logmag=False):
+    """L2 distance between the STFT magnitudes of ``den_rec`` and ``y``
+    (their log10 with ``logmag``), each frequency weighted."""
+    X = apply_stft(den_rec, nfft).abs()
+    Xref = apply_stft(y, nfft).abs()
+    w = _weights(X.shape[-2], freq_weight, X.device)
+    X = X * w
+    Xref = Xref * w
+    if logmag:
+        return torch.sqrt(torch.sum(
+            (torch.log10(X + _EPS) - torch.log10(Xref + _EPS)) ** 2))
+    return torch.sqrt(torch.sum((X - Xref) ** 2))
+
+
 def apply_filter_and_norm_STFTmag_fweighted(X, Xref, H, freq_weight="linear"):
     """The blind filter-fit objective || (|X| H - |Xref|) w ||_2 for complex
     STFTs [..., F, T] and a response H [F]."""
     Xm = X.abs() * H[..., :, None]
     Xr = Xref.abs()
-    w = _freq_weighting(torch.linspace(0.0, 1.0, Xm.shape[-2],
-                                       device=Xm.device), freq_weight)[:, None]
+    w = _weights(Xm.shape[-2], freq_weight, Xm.device)
     return torch.sqrt(torch.sum(((Xm - Xr) * w) ** 2))
+
+
+def filter_db_mse(params_true, params_est, freqs: torch.Tensor) -> torch.Tensor:
+    """Filter-estimation metric: the mean squared difference of the two
+    responses in dB."""
+    Ht = design_filter(params_true[0], params_true[1], freqs)
+    He = design_filter(params_est[0], params_est[1], freqs)
+    return torch.mean((20 * torch.log10(Ht + _EPS)
+                       - 20 * torch.log10(He + _EPS)) ** 2)

@@ -15,7 +15,11 @@ Counterpart of ``babe_tpu/sampling/blind.py``.  Per Heun stage:
   4. Tweedie score plus guidance scaled xi/(normguide+1e-6)·rec/t, then the
      Heun update.
 
-The observation STFT is computed once per request.
+The observation STFT is computed once per request.  ``rid=True`` also
+returns the denoised estimate, the filter and the score of every step;
+informed ``predict_bwe`` can track the filter fit on its denoised
+estimates as a diagnostic (``test_filter_fit``), with the fit objective's
+(fc, A) landscape at every step (``compute_sweep``).
 
 ``predict_bwe_AR`` is the informed step of the autoregressive long-input
 loop (``testers/tester.py::Tester._ar_loop``): the previous chunk's tail
@@ -26,7 +30,6 @@ data-consistency replacement on a hann-feathered mask
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -198,7 +201,7 @@ class BlindSampler(Sampler):
 
     def _stage(self, x_hat, t_cur: float, params, y, Y, gen):
         """One guided score evaluation with a filter re-fit.  Returns
-        (score, params)."""
+        (score, params, denoised estimate)."""
         cfg, b = self.cfg, self.blind
         y_obs = y
         if cfg.snr_observations is not None:
@@ -223,10 +226,13 @@ class BlindSampler(Sampler):
                 x_dc = score * t_cur**2 + x_hat
                 x_dc = y + x_dc - self.degradation_fcA(x_dc, params)
             score = (x_dc - x_hat) / t_cur**2
-        return score, params
+        return score, params, x_den
 
-    def predict_blind_bwe(self, gen, y, x_init=None):
-        """Blind BWE of the observation y [B, L]: (x, filter_params[2, K])."""
+    def predict_blind_bwe(self, gen, y, rid: bool = False, x_init=None):
+        """Blind BWE of the observation y [B, L]: (x, filter_params[2, K]),
+        or with ``rid`` (x, filter_params, denoised [T, B, L], t [T + 1],
+        filter_params [T, 2, K], score [T, B, L]), each trajectory taken
+        at the first stage of every step and at the final step."""
         cfg, b = self.cfg, self.blind
         Y = apply_stft(y, b.nfft)
         params = b.initial_params(y.device)
@@ -238,37 +244,91 @@ class BlindSampler(Sampler):
             x = _randn(y.shape, gen, y.device) * t[0]
             if warm:
                 x = y + x
-
-        def move(x_, t_i, g):
-            t_hat = t_i + g * t_i
-            eps = _randn(x_.shape, gen, x_.device)
-            return x_ + math.sqrt(max(t_hat**2 - t_i**2, 0.0)) * eps, t_hat
-
+        traj = []
         for i in range(cfg.T - 1):
-            x_hat, t_hat = move(x, t[i], gamma[i])
-            sc, params = self._stage(x_hat, t_hat, params, y, Y, gen)
+            x_hat, t_hat = self._move(x, t[i], gamma[i], gen)
+            sc, params, x_den = self._stage(x_hat, t_hat, params, y, Y, gen)
+            if rid:
+                traj.append((x_den, params, sc))
             d1 = -t_hat * sc
             h = t[i + 1] - t_hat
             if cfg.order == 2:
-                sc, params = self._stage(x_hat + h * d1, t[i + 1], params,
-                                         y, Y, gen)
+                sc, params, _ = self._stage(x_hat + h * d1, t[i + 1], params,
+                                            y, Y, gen)
                 x = x_hat + h * 0.5 * (d1 - t[i + 1] * sc)
             else:
                 x = x_hat + h * d1
-        x_hat, t_hat = move(x, t[cfg.T - 1], gamma[cfg.T - 1])
-        sc, params = self._stage(x_hat, t_hat, params, y, Y, gen)
-        return x_hat - t_hat * sc * (0.0 - t_hat), params
+        x_hat, t_hat = self._move(x, t[cfg.T - 1], gamma[cfg.T - 1], gen)
+        sc, params, x_den = self._stage(x_hat, t_hat, params, y, Y, gen)
+        x = x_hat - t_hat * sc * (0.0 - t_hat)
+        if not rid:
+            return x, params
+        traj.append((x_den, params, sc))
+        dens, filts, scores = (torch.stack(v) for v in zip(*traj))
+        return (x, params, dens, torch.tensor(t, dtype=torch.float32), filts,
+                scores)
 
-    def predict_bwe(self, gen, ylpf, filt, filt_type: str, x_init=None):
+    def predict_bwe(self, gen, ylpf, filt, filt_type: str, rid: bool = False,
+                    test_filter_fit: bool = False,
+                    compute_sweep: bool = False, x_init=None):
         """Informed BWE; ``filt_type='fc_A'`` takes the parametric filter
-        breakpoints [2, K]."""
+        breakpoints [2, K].
+
+        With ``test_filter_fit`` the filter fit also runs at every stage on
+        the denoised estimate (the guidance keeps the known filter), and
+        the result is (x, denoised [T, B, L], t [T + 1], fitted
+        params [T, 2, K]); with ``compute_sweep`` also the (fc, A) grid of
+        ``compute_sweep`` at every step: (x, denoised, t, params,
+        norms [T, 15, 12], grads [T, 15, 12, 2]).  This diagnostic runs the
+        2nd-order steps whatever ``order`` says, as the JAX package's."""
         if filt_type == "fc_A":
-            params = torch.as_tensor(filt, dtype=torch.float32,
-                                     device=ylpf.device)
-            return self.predict_conditional(
-                gen, ylpf, lambda x: self.degradation_fcA(x, params),
-                x_init=x_init)
-        return super().predict_bwe(gen, ylpf, filt, filt_type, x_init=x_init)
+            fixed = torch.as_tensor(filt, dtype=torch.float32,
+                                    device=ylpf.device)
+            deg = lambda x: self.degradation_fcA(x, fixed)  # noqa: E731
+        if not test_filter_fit:
+            if filt_type == "fc_A":
+                return self.predict_conditional(gen, ylpf, deg, rid=rid,
+                                                x_init=x_init)
+            return super().predict_bwe(gen, ylpf, filt, filt_type, rid=rid,
+                                       x_init=x_init)
+        if filt_type != "fc_A":
+            deg = D.degradation_from_filter(filt, filt_type)
+        cfg, b = self.cfg, self.blind
+        Y = apply_stft(ylpf, b.nfft)
+        params = b.initial_params(ylpf.device)
+        warm = cfg.start_sigma is not None
+        t, gamma = self._schedule(warm)
+        if x_init is not None:
+            x = x_init.to(ylpf.device, torch.float32)
+        else:
+            x = _randn(ylpf.shape, gen, ylpf.device) * t[0]
+            if warm:
+                x = ylpf + x
+
+        def stage(x_, t_, params, record: bool):
+            sc = self._score(x_, t_, y=ylpf, degradation=deg, gen=gen)
+            x_den = (sc * t_**2 + x_).detach()
+            params = self.fit_params(apply_stft(x_den, b.nfft), Y, params)
+            if record:
+                traj.append((x_den, params) + (
+                    self.compute_sweep(x_den, ylpf) if compute_sweep
+                    else ()))
+            return sc, params
+
+        traj = []
+        for i in range(cfg.T - 1):
+            x_hat, t_hat = self._move(x, t[i], gamma[i], gen, cfg.snoise)
+            sc, params = stage(x_hat, t_hat, params, True)
+            d1 = -t_hat * sc
+            h = t[i + 1] - t_hat
+            sc, params = stage(x_hat + h * d1, t[i + 1], params, False)
+            x = x_hat + h * 0.5 * (d1 - t[i + 1] * sc)
+        x_hat, t_hat = self._move(x, t[cfg.T - 1], gamma[cfg.T - 1], gen,
+                                  cfg.snoise)
+        sc, params = stage(x_hat, t_hat, params, True)
+        x = x_hat + t_hat**2 * sc
+        out = [torch.stack(v) for v in zip(*traj)]
+        return (x, out[0], torch.tensor(t, dtype=torch.float32), *out[1:])
 
     def predict_bwe_AR(self, gen, ylpf, y_masked, filt, filt_type: str, mask,
                        smooth_mask_size: int = 0, x_init=None):
@@ -283,9 +343,7 @@ class BlindSampler(Sampler):
                                      device=ylpf.device)
             base = lambda x: self.degradation_fcA(x, params)  # noqa: E731
         elif filt_type == "firwin":
-            raise NotImplementedError(
-                "filter type 'firwin' needs ops/fir.py, which is not ported "
-                "yet (ROADMAP.md section 1, item 10); use 'fc_A'")
+            base = D.make_fir(filt)
         else:
             raise NotImplementedError(filt_type)
         dev = ylpf.device
@@ -309,6 +367,38 @@ class BlindSampler(Sampler):
 
         return self.predict_conditional(gen, y, deg, x_init=x_init,
                                         score_postprocess=post)
+
+
+    def compute_sweep(self, denoised, y, fc_s=None, A_s=None):
+        """The fit objective's landscape over a grid of one-breakpoint
+        filters (fc in logspace(2.5, 4, 15) Hz, A in linspace(-80, -5, 12)
+        dB/octave): (norms [15, 12], grads [15, 12, 2] with respect to
+        (fc, A)), every grid point at once."""
+        dev = y.device
+        fc_s = (torch.logspace(2.5, 4, 15, device=dev) if fc_s is None
+                else torch.as_tensor(fc_s, dtype=torch.float32, device=dev))
+        A_s = (torch.linspace(-80, -5, 12, device=dev) if A_s is None
+               else torch.as_tensor(A_s, dtype=torch.float32, device=dev))
+        Xm = apply_stft(denoised, self.blind.nfft).abs()
+        Ym = apply_stft(y, self.blind.nfft).abs()
+        w = _freq_weighting(torch.linspace(0.0, 1.0, Xm.shape[-2],
+                                           device=dev),
+                            self.blind.freq_weighting_filter)[:, None]
+        with torch.enable_grad():
+            fc = fc_s[:, None].expand(-1, A_s.shape[0]).clone()
+            A = A_s[None, :].expand(fc_s.shape[0], -1).clone()
+            fc.requires_grad_(True)
+            A.requires_grad_(True)
+            # design_filter's one-breakpoint response at every grid point
+            f = self.freqs
+            fci = torch.clamp(fc, min=1e-9)[..., None]
+            seg = 10.0 ** (A[..., None] * torch.log2(
+                torch.maximum(f, fci) / fci) / 20.0)
+            H = torch.where(f >= fc[..., None], seg, torch.ones_like(seg))
+            d = (Xm * H[:, :, None, :, None] - Ym) * w
+            norms = torch.sqrt((d**2).sum((2, 3, 4)))
+            g_fc, g_A = torch.autograd.grad(norms.sum(), (fc, A))
+        return norms.detach(), torch.stack([g_fc, g_A], dim=-1)
 
 
 def prepare_smooth_mask(mask, size: int = 10) -> np.ndarray:

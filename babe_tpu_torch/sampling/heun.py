@@ -13,7 +13,13 @@ every entry point takes an optional ``x_init`` (the initial state, already
 scaled by t[0]) in place of the first noise draw.  ``predict_conditional``
 also takes a ``score_postprocess`` ``(score, x, t) -> score`` applied after
 every score evaluation (the autoregressive step's data-consistency
-replacement on its feathered overlap, ``blind.py``).
+replacement on its feathered overlap, ``blind.py``).  With ``rid=True`` an
+entry point also returns the denoised estimate of every step and the
+schedule.  The inverse problems (inpainting, compressive sensing,
+declipping, phase retrieval, informed BWE through any degradation of
+``degradations.py``, autoregressive continuation) are entry points over the
+same run; an observation of another shape than the signal (resampled,
+decimated, an STFT magnitude) goes through ``predict_resample``.
 """
 
 from __future__ import annotations
@@ -25,13 +31,30 @@ from typing import Any, Callable
 import torch
 
 from babe_tpu_torch.diffusion.edm import EDM
+from babe_tpu_torch.ops.filters import (
+    apply_norm_STFT_fweighted,
+    apply_norm_STFTmag_fweighted,
+)
+from babe_tpu_torch.sampling import degradations as D
 from babe_tpu_torch.utils.device import check_device
 
 
 def make_norm_fn(ps_cfg: Any) -> Callable:
-    """Reconstruction-error norm from the posterior_sampling config block."""
+    """Reconstruction-error norm from the posterior_sampling config block:
+    smooth L1, cosine, the STFT distances (complex, or magnitude and
+    log-magnitude) or the L^p norm per item, summed over the batch."""
     norm = ps_cfg.get("norm", 2)
     stft_cfg = ps_cfg.get("stft_distance", {}) or {}
+    if norm == "smoothl1":
+        beta = float(ps_cfg.get("smoothl1_beta", 1.0))
+
+        def fn(y, den_rec):
+            d = y - den_rec
+            ad = d.abs()
+            return torch.where(ad < beta, 0.5 * d**2 / beta,
+                               ad - 0.5 * beta).sum()
+
+        return fn
     if norm == "cosine":
         def fn(y, den_rec):
             cos = (y * den_rec).sum(-1) / (
@@ -39,9 +62,14 @@ def make_norm_fn(ps_cfg: Any) -> Callable:
             return torch.clamp(1 - cos, min=0).sum()
 
         return fn
-    if stft_cfg.get("use", False) or norm == "smoothl1":
-        raise NotImplementedError(
-            f"guidance norm {norm!r} / STFT distance is not ported yet")
+    if stft_cfg.get("use", False):
+        nfft = int(stft_cfg.get("nfft", 2048))
+        fw = ps_cfg.get("freq_weighting", "None")
+        if stft_cfg.get("mag", False):
+            logmag = bool(stft_cfg.get("logmag", False))
+            return lambda y, d: apply_norm_STFTmag_fweighted(y, d, fw, nfft,
+                                                             logmag)
+        return lambda y, d: apply_norm_STFT_fweighted(y, d, fw, nfft)
     ord_ = float(norm)
 
     def fn(y, den_rec):
@@ -160,8 +188,19 @@ class Sampler:
             t = self.edm.create_schedule(cfg.T)
         return t.tolist(), self.edm.get_gamma(t).tolist()
 
+    @staticmethod
+    def _move(x, t_i: float, g: float, gen, snoise: float = 1.0):
+        """The stochastic time move: (x + sqrt(t_hat^2 - t_i^2) eps snoise,
+        t_hat) with t_hat = t_i (1 + g)."""
+        t_hat = t_i + g * t_i
+        eps = _randn(x.shape, gen, x.device) * snoise
+        return x + math.sqrt(max(t_hat**2 - t_i**2, 0.0)) * eps, t_hat
+
     def _run(self, gen, shape, y=None, degradation=None, x_init=None,
-             score_postprocess=None):
+             score_postprocess=None, rid: bool = False):
+        """The reverse process from t[0] to 0.  With ``rid`` it returns
+        (x, denoised [T, *shape], t [T + 1]): the denoised estimate at the
+        first score of every step, and at the final step."""
         cfg = self.cfg
         dev = y.device if y is not None else self.device
         warm = (cfg.start_sigma is not None and y is not None
@@ -173,6 +212,7 @@ class Sampler:
             x = _randn(shape, gen, dev) * t[0]
             if warm:
                 x = y + x
+        dens = []
 
         def score(x_, t_):
             sc = self._score(x_, t_, y=y, degradation=degradation, gen=gen)
@@ -180,36 +220,90 @@ class Sampler:
                 sc = score_postprocess(sc, x_, t_)
             return sc
 
-        def move(x_, t_i, g):
-            t_hat = t_i + g * t_i
-            eps = _randn(x_.shape, gen, dev) * cfg.snoise
-            return x_ + math.sqrt(max(t_hat**2 - t_i**2, 0.0)) * eps, t_hat
-
         for i in range(cfg.T - 1):
-            x_hat, t_hat = move(x, t[i], gamma[i])
-            d1 = -t_hat * score(x_hat, t_hat)
+            x_hat, t_hat = self._move(x, t[i], gamma[i], gen, cfg.snoise)
+            sc = score(x_hat, t_hat)
+            if rid:
+                dens.append(sc * t_hat**2 + x_hat)
+            d1 = -t_hat * sc
             h = t[i + 1] - t_hat
             if cfg.order == 2:
                 d = -t[i + 1] * score(x_hat + h * d1, t[i + 1])
                 x = x_hat + h * 0.5 * (d1 + d)
             else:
                 x = x_hat + h * d1
-        x_hat, t_hat = move(x, t[cfg.T - 1], gamma[cfg.T - 1])
+        x_hat, t_hat = self._move(x, t[cfg.T - 1], gamma[cfg.T - 1], gen,
+                                  cfg.snoise)
         sc = score(x_hat, t_hat)
-        return x_hat + (0.0 - t_hat) * (-t_hat * sc)
+        x = x_hat + (0.0 - t_hat) * (-t_hat * sc)
+        if rid:
+            dens.append(sc * t_hat**2 + x_hat)
+            return x, torch.stack(dens), torch.tensor(t, dtype=torch.float32)
+        return x
 
     # ------------------------------------------------------------- public
 
-    def predict_unconditional(self, gen, shape, x_init=None):
-        return self._run(gen, shape, x_init=x_init)
+    def predict_unconditional(self, gen, shape, rid: bool = False,
+                              x_init=None):
+        return self._run(gen, shape, rid=rid, x_init=x_init)
 
-    def predict_conditional(self, gen, y, degradation, x_init=None,
-                            score_postprocess=None):
-        return self._run(gen, y.shape, y=y, degradation=degradation,
+    def predict_conditional(self, gen, y, degradation, rid: bool = False,
+                            x_init=None, score_postprocess=None):
+        return self._run(gen, y.shape, y=y, degradation=degradation, rid=rid,
                          x_init=x_init, score_postprocess=score_postprocess)
 
-    def predict_bwe(self, gen, ylpf, filt, filt_type: str, x_init=None):
-        from babe_tpu_torch.sampling import degradations as D
+    def predict_resample(self, gen, y, shape, degradation, rid: bool = False,
+                         x_init=None):
+        """An observation of another shape than the signal (resampled,
+        decimated, an STFT magnitude): the signal has ``shape``."""
+        return self._run(gen, shape, y=y, degradation=degradation, rid=rid,
+                         x_init=x_init)
 
+    def predict_inpainting(self, gen, y_masked, mask, rid: bool = False,
+                           x_init=None):
+        return self.predict_conditional(gen, y_masked, D.make_mask(mask),
+                                        rid=rid, x_init=x_init)
+
+    def predict_bwe(self, gen, ylpf, filt, filt_type: str, rid: bool = False,
+                    x_init=None):
         deg = D.degradation_from_filter(filt, filt_type)
-        return self.predict_conditional(gen, ylpf, deg, x_init=x_init)
+        if filt_type in ("resample", "decimate"):
+            return self.predict_resample(
+                gen, ylpf, (ylpf.shape[0], self.cfg.audio_len), deg, rid=rid,
+                x_init=x_init)
+        return self.predict_conditional(gen, ylpf, deg, rid=rid,
+                                        x_init=x_init)
+
+    def predict_declipping(self, gen, y_clipped, clip_value,
+                           rid: bool = False, x_init=None):
+        return self.predict_conditional(gen, y_clipped,
+                                        D.make_clip(clip_value), rid=rid,
+                                        x_init=x_init)
+
+    def predict_compsens(self, gen, y_masked, mask, rid: bool = False,
+                         x_init=None):
+        return self.predict_inpainting(gen, y_masked, mask, rid=rid,
+                                       x_init=x_init)
+
+    def predict_phase_retrieval(self, gen, y_mag, win_size, hop_size,
+                                rid: bool = False, x_init=None):
+        return self.predict_resample(
+            gen, y_mag, (y_mag.shape[0], self.cfg.audio_len),
+            D.make_stft_mag(win_size, hop_size), rid=rid, x_init=x_init)
+
+    def predict_autoregressive(self, gen, shape, N: int, overlap: float):
+        """Unconditional continuation by masked outpainting: ``N`` chunks,
+        each after the first holding the previous chunk's last
+        ``overlap`` share as an inpainting observation."""
+        endmask = int(overlap * shape[-1])
+        mask = torch.ones((1, self.cfg.audio_len), device=self.device)
+        mask[:, endmask:] = 0.0
+        x = self.predict_unconditional(gen, shape)
+        xcat = x
+        for _ in range(N - 1):
+            x_masked = torch.zeros((1, self.cfg.audio_len),
+                                   device=self.device)
+            x_masked[:, :endmask] = x[:, -endmask:]
+            x = self.predict_conditional(gen, x_masked, D.make_mask(mask))
+            xcat = torch.cat([xcat, x[..., endmask:]], dim=-1)
+        return xcat

@@ -1,17 +1,36 @@
-"""The tester core the library API runs on, in PyTorch.
+"""The experiment runner ("tester"), in PyTorch.
 
-Counterpart of the parts of ``babe_tpu/testers/tester.py`` that
-``api.BABE`` uses: construction (tester-side EDM, sampler and blind
-configs), noise streams, checkpoint loading with a shape check against the
-built model, the sampler factory, the STFT denoiser chain, the
-autoregressive long-input loop (``_ar_loop``) and the whole-recording mode
-that composes them (``test_real_blind_bwe_complete``).  The other
-experiment modes (inpainting, formal tests, MUSHRA, ...) belong to later
-slices of the port.
+Counterpart of ``babe_tpu/testers/tester.py``: one runner for every
+experiment mode of the reference's tester classes, dispatched by
+``dodajob`` over ``tester.modes``:
+
+  unconditional            ``sample_unconditional``
+  inpainting               ``test_inpainting`` (a gap in each test item)
+  bwe                      ``test_bwe`` (informed: firwin, cheby1, biquad,
+                           resample, decimate or the parametric fc_A)
+  blind_bwe                ``test_blind_bwe`` (synthetic fc_A degradation,
+                           LSD and filter dB-MSE records)
+  real_blind_bwe           ``test_real_blind_bwe`` (a recordings folder)
+  real_blind_bwe_complete  ``test_real_blind_bwe_complete`` (the chunk loop)
+  formal_test_bwe          ``formal_test_bwe`` (a folder, overlap-add or
+                           autoregressive, resumable)
+  formal_test_bwe_small    ``formal_test_bwe_small`` (filter dB-MSE)
+  mushra                   ``test_mushra`` (listening-test stimuli)
+  declipping, phase_retrieval, comp_sens
+
+Each mode writes the JAX mode's files (wavs, ``.npz`` trajectories,
+``.npy`` sweeps, plots when matplotlib is installed) and
+``<model_dir>/outputs/metrics.jsonl`` records with its keys.  The samplers
+run eagerly on the tester's device; noise comes from one seeded
+``torch.Generator`` stream (``next_key``).  The tester also carries what
+``api.BABE`` runs on: checkpoint loading with a shape check against the
+built model, the sampler factory, the STFT denoiser chain and the
+autoregressive long-input loop (``_ar_loop``).
 """
 
 from __future__ import annotations
 
+import glob as _glob
 import os
 import pickle
 
@@ -20,10 +39,16 @@ import torch
 
 from babe_tpu_torch.data.wavio import read_wav, to_mono
 from babe_tpu_torch.diffusion.edm import EDM, EDMParams
+from babe_tpu_torch.ops.filters import design_filter, filter_db_mse
+from babe_tpu_torch.ops.fir import get_FIR_lowpass
 from babe_tpu_torch.ops.resample import resample
+from babe_tpu_torch.ops.stft import apply_filter, rfftfreq
+from babe_tpu_torch.sampling import degradations as D
 from babe_tpu_torch.sampling.blind import BlindConfig, BlindSampler
 from babe_tpu_torch.sampling.heun import SamplerConfig
+from babe_tpu_torch.utils import logging as ulog
 from babe_tpu_torch.utils.logging import MetricsLogger, write_audio_file
+from babe_tpu_torch.utils.metrics import lsd, lsd_high_band
 from babe_tpu_torch.utils.weights import _flatten, load_flax, to_flax
 
 # samples dropped from the end of every autoregressive chunk's prediction
@@ -85,9 +110,10 @@ def read_checkpoint(path: str) -> dict:
 
 class Tester:
     def __init__(self, args, model, diff_params: EDM, device="cuda",
-                 denoiser=None):
+                 test_set=None, denoiser=None):
         self.args = args
         self.model = model
+        self.test_set = test_set  # items (audio, fs, name)
         self.denoiser = denoiser  # models.denoiser.MultiStageDenoiser
         self.device = torch.device(device)
         self.it = 0
@@ -104,8 +130,9 @@ class Tester:
         self.fs = int(args.exp.sample_rate)
         self.audio_len = int(args.exp.audio_len)
         self._outputs = os.path.join(str(args.model_dir), "outputs")
-        # the output folder of each mode this slice ports
-        self.paths = {"complete": os.path.join(self._outputs, "complete")}
+        self.paths = {mode: os.path.join(self._outputs, mode) for mode in (
+            "unconditional", "bwe", "inpainting", "blind_bwe",
+            "real_blind_bwe", "complete", "formal", "mushra")}
         self._metrics = None
 
     @property
@@ -199,6 +226,60 @@ class Tester:
 
     def _host(self, t: torch.Tensor) -> np.ndarray:
         return t.float().cpu().numpy()
+
+    def _dev(self, x) -> torch.Tensor:
+        """A tensor or an array as float32 on the tester's device."""
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device, torch.float32)
+        return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+
+    def resample_audio(self, seg, fs: int) -> np.ndarray:
+        """[1, audio_len] at the model's rate: resampled, then cropped or
+        zero-padded."""
+        seg = np.atleast_2d(np.asarray(seg, dtype=np.float32))
+        if fs != self.fs:
+            seg = self._host(resample(self._dev(seg), int(fs), self.fs))
+        if seg.shape[-1] < self.audio_len:
+            seg = np.pad(seg, ((0, 0), (0, self.audio_len - seg.shape[-1])))
+        return seg[..., : self.audio_len]
+
+    def apply_lowpass_fcA(self, seg, params) -> torch.Tensor:
+        """``seg`` low-passed by the parametric filter ``params`` [2, K]."""
+        nfft = self.blind_cfg.nfft
+        freqs = self._dev(rfftfreq(nfft, self.fs))
+        H = design_filter(self._dev(params[0]), self._dev(params[1]), freqs)
+        return apply_filter(self._dev(seg), H, nfft)
+
+    def _test_filter(self) -> np.ndarray:
+        tf = self.args.tester.blind_bwe.test_filter
+        return np.asarray([np.atleast_1d(tf.fc), np.atleast_1d(tf.A)],
+                          dtype=np.float32)
+
+    def _prepare_informed_filter(self, typefilter: str):
+        if typefilter == "fc_A":
+            return self._test_filter(), "fc_A"
+        return D.prepare_filter(self.args, self.fs)
+
+    def _maybe_add_snr_noise(self, y: torch.Tensor, snr_db) -> torch.Tensor:
+        """y plus white noise at ``snr_db`` dB per item (None: y)."""
+        if snr_db in (None, "None"):
+            return y
+        snr = 10 ** (float(snr_db) / 10)
+        sigma = torch.sqrt(y.var(-1, correction=0, keepdim=True) / snr)
+        return y + sigma * torch.randn(y.shape, generator=self.next_key(),
+                                       device=y.device)
+
+    def _items(self):
+        """The test set's items as (index, [1, audio_len] float32 on the
+        device, name without extension)."""
+        for i in range(len(self.test_set)):
+            original, fs, name = self.test_set[i]
+            yield (i, self._dev(self.resample_audio(original, fs)),
+                   os.path.splitext(name)[0])
+
+    def _recordings(self, path: str, num: int | None = None) -> list[str]:
+        files = sorted(_glob.glob(os.path.join(path, "*.wav")))
+        return files if num is None else files[:num]
 
     def apply_denoiser(self, x: torch.Tensor) -> torch.Tensor:
         """Chunked overlap-add denoising with a hamming cross-fade."""
@@ -317,3 +398,464 @@ class Tester:
         write_audio_file(final, self.fs, n + ".reconstructed",
                          self.paths["complete"])
         return final, est_filter
+
+    # ---------------------------------------------------------------- modes
+
+    def sample_unconditional(self) -> np.ndarray:
+        """``tester.unconditional.num_samples`` clips of its ``audio_len``,
+        written as one wav."""
+        ucfg = self.args.tester.unconditional
+        shape = (int(ucfg.num_samples), int(ucfg.audio_len))
+        preds = self._host(self.sampler().predict_unconditional(
+            self.next_key(), shape))
+        write_audio_file(preds, self.fs, "unconditional",
+                         self.paths["unconditional"])
+        return preds
+
+    def test_inpainting(self):
+        """Restore a gap of ``inpainting.gap_length`` ms in each test item
+        (centred, or from ``start_gap_idx`` ms; at most half a segment)."""
+        if self.test_set is None:
+            print("No test set specified, skipping inpainting test")
+            return None
+        icfg = self.args.tester.inpainting
+        gap = int(float(icfg.gap_length) * self.fs / 1000)
+        gap = min(gap, self.audio_len // 2)
+        start = icfg.get("start_gap_idx", None)
+        start = ((self.audio_len - gap) // 2 if start in (None, "None")
+                 else int(float(start) * self.fs / 1000))
+        mask = np.ones((1, self.audio_len), np.float32)
+        mask[:, start : start + gap] = 0.0
+        mask = self._dev(mask)
+        s = self.sampler()
+        outs = []
+        for _, seg, n in self._items():
+            pred = self._host(s.predict_inpainting(self.next_key(),
+                                                   seg * mask, mask))
+            outs.append(pred)
+            write_audio_file(pred, self.fs, n, self.paths["inpainting"])
+        return np.concatenate(outs, 0) if outs else None
+
+    def test_bwe(self, typefilter=None, test_filter_fit=None,
+                 compute_sweep=None):
+        """Informed BWE over the test set with the filter of
+        ``bandwidth_extension.filter`` (or the test filter for 'fc_A').
+        With ``test_filter_fit`` the fitted filter's trajectory is saved
+        per item, with ``compute_sweep`` also the (fc, A) landscape as
+        ``data_norms<i>.npy`` / ``data_grads<i>.npy``."""
+        if self.test_set is None:
+            print("No test set specified, skipping bwe test")
+            return None
+        be = self.args.tester.bandwidth_extension
+        if test_filter_fit is None:
+            test_filter_fit = bool(be.get("test_filter_fit", False))
+        if compute_sweep is None:
+            compute_sweep = bool(be.get("compute_sweep", False))
+        typefilter = typefilter or be.filter.type
+        filt, ftype = self._prepare_informed_filter(typefilter)
+        path = self.paths["bwe"]
+        os.makedirs(path, exist_ok=True)
+        s = self.sampler()
+        snr = self.args.tester.blind_bwe.get("SNR_observations", "None")
+        outs = []
+        for i, seg, n in self._items():
+            if ftype == "fc_A":
+                y = self.apply_lowpass_fcA(seg, filt)
+            else:
+                y = D.degradation_from_filter(filt, ftype)(seg)
+            y = self._maybe_add_snr_noise(y, snr)
+            out = s.predict_bwe(self.next_key(), y, filt, ftype,
+                                test_filter_fit=test_filter_fit,
+                                compute_sweep=compute_sweep)
+            pred = out[0] if test_filter_fit else out
+            if test_filter_fit:
+                _, dens, t, filts = out[:4]
+                if compute_sweep:
+                    np.save(os.path.join(path, f"data_norms{i}.npy"),
+                            self._host(out[4]))
+                    np.save(os.path.join(path, f"data_grads{i}.npy"),
+                            self._host(out[5]))
+                ulog.save_trajectory(path, n + "_filter_fit", denoised=dens,
+                                     t=t, filters=filts)
+                parametric = ftype == "fc_A"  # plotted beside the fit
+                ulog.plot_filter_response(
+                    [filts[-1], filt] if parametric else [filts[-1]],
+                    rfftfreq(self.blind_cfg.nfft, self.fs),
+                    os.path.join(path, n + "_fitted_filter.png"),
+                    labels=(["fitted", "reference"] if parametric
+                            else ["fitted"]))
+            pred = self._host(pred)
+            outs.append(pred)
+            write_audio_file(seg, self.fs, n, path + "_original")
+            write_audio_file(y, self.fs, n, path + "_degraded")
+            write_audio_file(pred, self.fs, n, path + "_reconstructed")
+        return np.concatenate(outs, 0) if outs else None
+
+    def test_blind_bwe(self, typefilter="fc_A", compute_sweep=False):
+        """Blind BWE of each test item low-passed by the test filter: one
+        ``metrics.jsonl`` record per item (filter dB-MSE, LSD and high-band
+        LSD of the reconstruction and of the degraded input, the estimated
+        filter), its wavs, its trajectory and plots."""
+        if self.test_set is None:
+            print("No test set specified, skipping blind bwe test")
+            return None
+        bb = self.args.tester.blind_bwe
+        da_filter = self._test_filter()
+        freqs = self._dev(rfftfreq(self.blind_cfg.nfft, self.fs))
+        fc0 = float(da_filter[0][0])
+        path = self.paths["blind_bwe"]
+        s = self.sampler()
+        results = []
+        for i, seg, n in self._items():
+            sn = bb.get("sigma_norm", "None")
+            if sn not in (None, "None"):
+                seg = float(sn) * seg / seg.std(-1, correction=0,
+                                                 keepdim=True)
+            gain = float(bb.get("gain_boost", 0) or 0)
+            if gain != 0:
+                seg = seg * 10 ** (gain / 20)
+            y = self.apply_lowpass_fcA(seg, da_filter)
+            y = self._maybe_add_snr_noise(y, bb.get("SNR_observations",
+                                                    "None"))
+            pred, est, dens, t, filts, scores = s.predict_blind_bwe(
+                self.next_key(), y, rid=True)
+            y_est = self.apply_lowpass_fcA(seg, est)
+            self.metrics.log(
+                {"mode": "blind_bwe", "item": n,
+                 "filter_db_mse": float(filter_db_mse(self._dev(da_filter),
+                                                      est, freqs)),
+                 "lsd": float(lsd(seg, pred).mean()),
+                 "lsd_high_band": float(lsd_high_band(seg, pred, self.fs,
+                                                      fc0).mean()),
+                 # the degraded input's: the numbers BWE must beat
+                 "lsd_degraded": float(lsd(seg, y).mean()),
+                 "lsd_high_band_degraded": float(lsd_high_band(
+                     seg, y, self.fs, fc0).mean()),
+                 "fc_est": self._host(est[0]).tolist(),
+                 "A_est": self._host(est[1]).tolist()},
+                step=i)
+            for tag, audio in (("original", seg), ("degraded", y),
+                               ("reconstructed", pred), ("estimate", y_est)):
+                write_audio_file(audio, self.fs, n, path + "_" + tag)
+            ulog.save_trajectory(path, n + "_rid", denoised=dens, t=t,
+                                 filters=filts, score=scores)
+            ulog.diffusion_spec_animation(
+                dens, t, os.path.join(path, n + "_anim.gif"), fs=self.fs)
+            ulog.plot_filter_response(
+                [est, da_filter], rfftfreq(self.blind_cfg.nfft, self.fs),
+                os.path.join(path, n + "_filter.png"),
+                labels=["estimated", "reference"])
+            results.append((self._host(pred), self._host(est)))
+        return results
+
+    def test_real_blind_bwe(self, typefilter="fc_A", compute_sweep=False):
+        """Blind BWE of the first ``real_recordings.num_samples`` wavs of
+        ``real_recordings.path`` (their first segment)."""
+        bb = self.args.tester.blind_bwe
+        files = self._recordings(str(bb.real_recordings.path),
+                                 int(bb.real_recordings.num_samples))
+        if not files:
+            print("no real recordings found, skipping")
+            return None
+        path = self.paths["real_blind_bwe"]
+        s = self.sampler()
+        results = []
+        for i, f in enumerate(files):
+            d, fs = read_wav(f)
+            n = os.path.splitext(os.path.basename(f))[0] + typefilter
+            seg = self._dev(self.resample_audio(to_mono(d), fs))
+            sn = bb.get("sigma_norm", "None")
+            if sn not in (None, "None"):
+                seg = float(sn) * seg / seg.std(-1, correction=0,
+                                                 keepdim=True)
+            pred, est, dens, t, filts, scores = s.predict_blind_bwe(
+                self.next_key(), seg, rid=True)
+            write_audio_file(seg, self.fs, n, path + "_degraded")
+            write_audio_file(pred, self.fs, n, path + "_reconstructed")
+            ulog.save_trajectory(path, n + "_rid", denoised=dens, t=t,
+                                 filters=filts, score=scores)
+            self.metrics.log({"mode": "real_blind_bwe", "item": n,
+                              "fc_est": self._host(est[0]).tolist(),
+                              "A_est": self._host(est[1]).tolist()}, step=i)
+            results.append((self._host(pred), self._host(est)))
+        return results
+
+    def formal_test_bwe(self, typefilter=None, blind=False,
+                        robustness=False):
+        """Restore every wav of ``formal_test.path`` into
+        ``formal_test.folder`` (a file already there is skipped): degrade
+        it with the informed filter (``robustness``: the robustness
+        firwin) at its own rate, resample, then either the chunk loop
+        (``use_AR``, informed) or independent segments cross-faded over
+        ``OLA`` samples with a periodic hann, each blind (batch 1, its own
+        filter, pickled beside the wav) or informed (``chunk_batch``
+        segments a sampler run).  A tail longer than the last segment keeps
+        the degraded input, cross-faded over ``OLA`` samples."""
+        ft = self.args.tester.formal_test
+        typefilter = typefilter or self.args.tester.bandwidth_extension.filter.type
+        filt, ftype = self._prepare_informed_filter(typefilter)
+        if robustness:
+            rf = ft.robustness_filter
+            filt = get_FIR_lowpass(int(rf.order), float(rf.fc),
+                                   float(rf.beta), self.fs)
+            ftype = "firwin"
+        filenames = self._recordings(str(ft.path))
+        path_out = str(ft.folder)
+        os.makedirs(path_out, exist_ok=True)
+        segL = self.audio_len
+        discard_end = AR_DISCARD_END
+        use_ar = bool(ft.get("use_AR", False))
+        OLA = int(ft.get("OLA", 2048))
+        s = self.sampler()
+        hann = np.hanning(2 * OLA + 1)[:-1].astype(np.float32)
+
+        for filename in filenames:
+            n = os.path.splitext(os.path.basename(filename))[0]
+            if os.path.exists(os.path.join(path_out, n + ".wav")):
+                continue
+            d, fs = read_wav(filename)
+            Dg = self._dev(np.atleast_2d(to_mono(d)))
+            if ftype == "fc_A":
+                degraded = self.apply_lowpass_fcA(Dg, filt)
+            else:
+                degraded = D.degradation_from_filter(filt, ftype)(Dg)
+            if fs != self.fs:
+                degraded = resample(degraded, fs, self.fs)
+            degraded = self._host(degraded)
+            L = degraded.shape[-1]
+            if L < segL:
+                print(f"SKIPPED {filename}: length {L} < segment length "
+                      f"{segL} (formal_test_bwe requires at least one full "
+                      "segment)")
+                continue
+            final = np.zeros_like(degraded)
+            filter_data = []
+            if use_ar and not blind:
+                final = self._ar_loop(degraded, filt, ftype)
+            else:
+                hop = segL - discard_end - OLA
+                starts = list(range(0, max(L - segL - discard_end, 1), hop))
+                tail_ix = starts[-1] + hop
+                segs = [degraded[0, ix : ix + segL] for ix in starts]
+                tail = degraded[0, tail_ix:]
+                tail_len = tail.shape[-1]
+                segs.append(np.pad(tail, (0, segL - tail_len))
+                            if tail_len < segL else tail[:segL])
+                segs = np.stack(segs)  # [n_chunks, segL]
+                if blind:
+                    # each chunk its own request: its own noise, filter
+                    # fit and guidance normalisation
+                    preds, ests = [], []
+                    for row in range(segs.shape[0]):
+                        pred, est = s.predict_blind_bwe(
+                            self.next_key(), self._dev(segs[row : row + 1]))
+                        preds.append(self._host(pred)[0])
+                        ests.append(self._host(est))
+                    preds = np.stack(preds)
+                    filter_data = [((row,), ests[row])
+                                   for row in range(len(ests))]
+                else:
+                    # full batches of cb (the last one padded with copies
+                    # of the last segment): the guidance is normalised
+                    # over each batch, as in the JAX package
+                    cb = max(int(ft.get("chunk_batch", 4)), 1)
+                    reps = -segs.shape[0] % cb
+                    segs_in = np.concatenate([segs, segs[-1:].repeat(reps,
+                                                                     0)], 0)
+                    preds = np.concatenate([self._host(s.predict_bwe(
+                        self.next_key(), self._dev(segs_in[b0 : b0 + cb]),
+                        filt, ftype)) for b0 in range(0, segs_in.shape[0],
+                                                      cb)], 0)
+                    preds = preds[: segs.shape[0]]
+                for row, ix in enumerate(starts):
+                    win = preds[row, : segL - discard_end].copy()
+                    if row > 0:
+                        win[:OLA] *= hann[:OLA]
+                    win[-OLA:] *= hann[OLA:]
+                    if row == 0:
+                        final[0, : segL - discard_end] = win
+                    else:
+                        final[0, ix : ix + segL - discard_end] += win
+                # the tail can outrun the last segment by up to
+                # discard_end samples: the prediction covers segL of them,
+                # the rest keeps the degraded input, cross-faded linearly
+                m = min(tail_len, segL)
+                win = preds[-1, :m].copy()
+                win[:OLA] *= hann[:OLA]
+                final[0, tail_ix : tail_ix + m] += win
+                if tail_len > segL:
+                    final[0, tail_ix + segL:] = degraded[0, tail_ix + segL:]
+                    xf = min(int(OLA), segL, tail_ix + segL)
+                    if xf > 1:
+                        sp = tail_ix + segL - xf
+                        ramp = np.linspace(1.0, 0.0, xf, endpoint=False,
+                                           dtype=np.float32)
+                        final[0, sp : sp + xf] = (
+                            final[0, sp : sp + xf] * ramp
+                            + degraded[0, sp : sp + xf] * (1.0 - ramp))
+            write_audio_file(final, self.fs, n, path_out)
+            if blind:
+                with open(os.path.join(path_out, n + ".filter_data.pkl"),
+                          "wb") as f:
+                    pickle.dump(filter_data, f)
+
+    def formal_test_bwe_small(self):
+        """Blind BWE of each wav of ``formal_test.path`` (one segment,
+        low-passed by the test filter) into ``formal_test.folder``, with
+        the filter dB-MSE per item; returns the dB-MSEs."""
+        ft = self.args.tester.formal_test
+        da_filter = self._test_filter()
+        path_out = str(ft.folder)
+        os.makedirs(path_out, exist_ok=True)
+        s = self.sampler()
+        freqs = self._dev(rfftfreq(self.blind_cfg.nfft, self.fs))
+        mses = []
+        for i, filename in enumerate(self._recordings(str(ft.path))):
+            n = os.path.splitext(os.path.basename(filename))[0]
+            if os.path.exists(os.path.join(path_out, n + ".wav")):
+                continue
+            d, fs = read_wav(filename)
+            seg = self._dev(self.resample_audio(to_mono(d), fs))
+            y = self.apply_lowpass_fcA(seg, da_filter)
+            pred, est = s.predict_blind_bwe(self.next_key(), y)
+            mse = float(filter_db_mse(self._dev(da_filter), est, freqs))
+            mses.append(mse)
+            self.metrics.log({"mode": "formal_small", "item": n,
+                              "filter_db_mse": mse}, step=i)
+            write_audio_file(pred, self.fs, n, path_out)
+        if mses:
+            print(f"filter dB-MSE mean over {len(mses)} items: "
+                  f"{np.mean(mses):.3f}")
+        return mses
+
+    def test_mushra(self, typefilter="fc_A", compute_sweep=False):
+        """MUSHRA stimuli from the recordings folder: per item the original
+        (the hidden reference, its first segment at the file's own rate),
+        the degraded anchor (the test filter), the blind reconstruction and
+        the estimated filter re-applied to the original, plus the
+        trajectory; with ``compute_sweep`` also ``data_t<i>.npy``,
+        ``data_denoised<i>.npy`` and ``data_filters<i>.npy``."""
+        bb = self.args.tester.blind_bwe
+        files = self._recordings(str(bb.real_recordings.path),
+                                 int(bb.real_recordings.num_samples))
+        da_filter = self._test_filter()
+        path = self.paths["mushra"]
+        os.makedirs(path, exist_ok=True)
+        s = self.sampler()
+        for i, f in enumerate(files):
+            d, fs = read_wav(f)
+            n = os.path.splitext(os.path.basename(f))[0] + typefilter
+            seg = np.asarray(to_mono(d), np.float32)[None, : self.audio_len]
+            if seg.shape[-1] < self.audio_len:
+                seg = np.pad(seg, ((0, 0), (0, self.audio_len
+                                            - seg.shape[-1])))
+            seg = self._dev(seg)
+            y = self.apply_lowpass_fcA(seg, da_filter)
+            y = self._maybe_add_snr_noise(y, bb.get("SNR_observations",
+                                                    "None"))
+            pred, est, dens, t, filts, scores = s.predict_blind_bwe(
+                self.next_key(), y, rid=True)
+            y_est = self.apply_lowpass_fcA(seg, est)
+            for tag, audio in (("original", seg), ("degraded", y),
+                               ("reconstructed", pred),
+                               ("degraded_estimate", y_est)):
+                write_audio_file(audio, self.fs, n, path + "_" + tag)
+            ulog.save_trajectory(path, n + "_rid", denoised=dens, t=t,
+                                 filters=filts, score=scores)
+            if compute_sweep:
+                for key, v in (("t", t), ("denoised", dens),
+                               ("filters", filts)):
+                    np.save(os.path.join(path, f"data_{key}{i}.npy"),
+                            self._host(v))
+
+    # ------------------------------------------- additional inverse problems
+
+    def test_declipping(self):
+        """Declipping of each test item clipped at the level that gives
+        ``declipping.SDR`` dB."""
+        if self.test_set is None:
+            return None
+        sdr = float(self.args.tester.declipping.get("SDR", 3))
+        s = self.sampler()
+        outs = []
+        for _, seg, n in self._items():
+            level = seg.std(correction=0) * 10 ** (-sdr / 20) * 2
+            y = torch.clamp(seg, -level, level)
+            pred = self._host(s.predict_declipping(self.next_key(), y,
+                                                   level))
+            outs.append(pred)
+            write_audio_file(pred, self.fs, n, self.paths["bwe"]
+                             + "_declipped")
+        return np.concatenate(outs, 0) if outs else None
+
+    def test_phase_retrieval(self):
+        """Phase retrieval from each test item's STFT magnitude
+        (``phase_retrieval.win_size``, ``hop_size``)."""
+        if self.test_set is None:
+            return None
+        pr = self.args.tester.phase_retrieval
+        win, hop = int(pr.win_size), int(pr.hop_size)
+        s = self.sampler()
+        outs = []
+        for _, seg, n in self._items():
+            y_mag = D.make_stft_mag(win, hop)(seg)
+            pred = self._host(s.predict_phase_retrieval(self.next_key(),
+                                                        y_mag, win, hop))
+            outs.append(pred)
+            write_audio_file(pred, self.fs, n, self.paths["bwe"] + "_pr")
+        return np.concatenate(outs, 0) if outs else None
+
+    def test_comp_sens(self):
+        """Compressive sensing: each test item observed at a random
+        ``comp_sens.percentage`` % of its samples (one mask from a
+        generator seeded 0)."""
+        if self.test_set is None:
+            return None
+        pct = float(self.args.tester.comp_sens.get("percentage", 5))
+        gen = torch.Generator().manual_seed(0)
+        mask = self._dev((torch.rand((1, self.audio_len), generator=gen)
+                          < pct / 100.0).float())
+        s = self.sampler()
+        outs = []
+        for _, seg, n in self._items():
+            pred = self._host(s.predict_compsens(self.next_key(), seg * mask,
+                                                 mask))
+            outs.append(pred)
+            write_audio_file(pred, self.fs, n, self.paths["bwe"] + "_cs")
+        return np.concatenate(outs, 0) if outs else None
+
+    # ------------------------------------------------------------- dispatch
+
+    def dodajob(self) -> dict:
+        """Run every mode of ``tester.modes`` in order; returns each mode's
+        result.  An unknown mode raises ``NotImplementedError``."""
+        ft = self.args.tester.get("formal_test", {}) or {}
+        runs = {
+            "unconditional": self.sample_unconditional,
+            "inpainting": self.test_inpainting,
+            "bwe": self.test_bwe,
+            "blind_bwe": self.test_blind_bwe,
+            "real_blind_bwe": self.test_real_blind_bwe,
+            "real_blind_bwe_complete": self.test_real_blind_bwe_complete,
+            "formal_test_bwe": lambda: self.formal_test_bwe(
+                blind=bool(ft.get("blind", False)),
+                robustness=bool(ft.get("robustness", False))),
+            "declipping": self.test_declipping,
+            "phase_retrieval": self.test_phase_retrieval,
+            "comp_sens": self.test_comp_sens,
+            "formal_test_bwe_small": self.formal_test_bwe_small,
+            "mushra": lambda: self.test_mushra(compute_sweep=bool(
+                self.args.tester.blind_bwe.get("compute_sweep", False))),
+        }
+        results = {}
+        for mode in list(self.args.tester.modes):
+            if mode not in runs:
+                raise NotImplementedError(f"tester mode {mode!r}")
+            results[mode] = runs[mode]()
+        self.close()
+        return results
+
+    def close(self):
+        """The JAX tester's ``close`` releases its metrics file; the port's
+        logger appends and closes the file at every record, so nothing is
+        left open.  Idempotent."""

@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                       # every default phase
     python3 chip_smoke.py --phases identify,profile   # a time breakdown
+    python3 chip_smoke.py --phases identify,iir       # IIR guidance times
 
 Phases (any failure exits non-zero; no phase catches and carries on):
 
@@ -49,7 +50,12 @@ Phases (any failure exits non-zero; no phase catches and carries on):
                 training batch (4 x 184184 samples), then both at the edge
                 shapes of their cut (rows spanning chunks, ragged T, 96
                 channels, the folded narrow side, d = 64 on F = 384) and
-                conv_dw at K4's kernels with dt = 2; the filter fit at
+                conv_dw at K4's kernels with dt = 2; every kernel at each
+                shape the capability phase's tiny network (widths 16, 16,
+                32) launches it at, recorded on the card from one fp32
+                training step and one fp32 and one int8 guided evaluation
+                (K1, K2 and its backward, K3, conv_dw, fused_stage_dw:
+                the older tiles, checked only); the filter fit at
                 every case of tools/fit_sensitivity.py's FIT_CASES (end
                 point and every single step against the CPU plain loop,
                 its iterations beside the plain loop's, us and SM cycles
@@ -107,6 +113,28 @@ Phases (any failure exits non-zero; no phase catches and carries on):
                 flagship model (110250 samples, batch 4, gates opened with
                 N(0, 0.02^2)) in bf16 and in int8: the waveform's relative
                 divergence and the LSD between the two, reported, not gated.
+  9. cli        ``python -m babe_tpu_torch.test``'s main, in-process, at
+                the flagship in bf16 on a seeded .ckpt and two seeded
+                test wavs: blind_bwe and bwe (firwin, order 500, 1 kHz) at
+                tester.T = 35, then inpainting, declipping, comp_sens,
+                phase_retrieval and unconditional at tester.T = 8; per mode
+                its seconds per item (and those of its trajectory dumps)
+                and its launches of K1, K2, K2's backward and the fit; the
+                counters zeroed just before each CLI run and read just
+                after; a missing file or a non-finite result fails.
+ 10. capability the quality gates on trained weights, as their own
+                processes: ``babe_tpu_torch.tools.capability_e2e`` (a tiny
+                model trained for the tool's 1500 steps on seeded
+                sawtooths, then blind BWE on two low-passed probes at the
+                tool's T = 15, the length and steps the gates are
+                calibrated at; gate: high-band
+                LSD below the degraded probe's on both) and
+                ``babe_tpu_torch.tools.quality_int8 --mode lsd`` (the same
+                checkpoint in bf16 and in int8 with every tiny stack on K3;
+                gate: |mean LSD delta| < 0.05 dB and K3 launched).
+  iir           (not by default) one guided evaluation of informed BWE at
+                the flagship with the firwin, cheby1 and biquad
+                degradations, and the IIR recursion alone, timed.
 
 The last two lines are the kernels line and the result line
 ``{"ok": true, "device": {...}}``.
@@ -539,6 +567,7 @@ def phase_kernels(results: dict):
     ok &= _kernel_filter_fit(agg["filter_fit"])
     ok &= _kernel_k4(account, results)
     ok &= _kernel_dw(account, k1_shapes, k2_shapes)
+    ok &= _tiny_net_checks()
     for name in ("stage_dw_operands", "stage_fwd_operand",
                  "stage_int8_operand"):
         agg[name]["library_ms"] = None
@@ -733,7 +762,184 @@ def _stage_fwd_edges(dtype, g) -> bool:
         log(f"{line} (edge)")
     for B, F, T, C, d in K3_EDGE:
         ok &= _kernel_int8_stage(B, F, T, C, d, 0, dtype, g, None, None,
-                                 edge=True)
+                                 edge="edge")
+    return ok
+
+
+# the launchers the tiny network's training, serving and int8 serving run
+TINY_LAUNCHERS = ("launch_conv5x3", "launch_fused_stage",
+                  "launch_fused_stage_bwd", "launch_fused_stage_int8",
+                  "launch_conv_dw", "launch_fused_stage_dw")
+
+
+def _tiny_launches() -> dict:
+    """The kernel launches of the capability phase's tiny network
+    (``capability_e2e.TINY``: widths 16, 16 and 32), recorded on the card
+    with seeded weights: one training step (fp32, batch 4, remat as the
+    config sets it, the EDM loss as ``babe_tpu_torch.train`` takes it), one
+    guided evaluation at batch 1 in fp32 (the blind test's) and one in
+    int8 with every stack on K3 (``BABE_INT8_MINC=16``, as ``quality_int8``
+    serves it).  Returns {launcher: {(dtype name, shape key): launches}};
+    a shape key is (B, F, T, C, d), K1's (B, F, T, C, N, d, transposed)
+    and conv_dw's (B, F, T, C, N, kernel shape, dilation)."""
+    import inspect
+
+    import torch
+
+    from babe_tpu_torch import kernels
+    from babe_tpu_torch.config import default_config
+    from babe_tpu_torch.diffusion.edm import EDM
+    from babe_tpu_torch.models.cqtdiff import CQTDiffPlus
+    from babe_tpu_torch.tools.capability_e2e import TINY
+
+    seen = {name: {} for name in TINY_LAUNCHERS}
+
+    def shape_key(name, b):
+        x = b["x"]
+        if name == "launch_conv5x3":
+            tr = bool(b.get("transposed", False))
+            N = b["w"].shape[2 if tr else 3]
+            return (*x.shape, N, int(b["d"]), tr)
+        if name == "launch_conv_dw":
+            return (*x.shape, b["g"].shape[3], tuple(b["kshape"]),
+                    tuple(b["dilation"]))
+        return (*x.shape, int(b["d"]))
+
+    undo = []
+    for name in TINY_LAUNCHERS:
+        orig = getattr(kernels, name)
+
+        def rec(*a, _orig=orig, _sig=inspect.signature(orig), _name=name,
+                **k):
+            b = _sig.bind(*a, **k).arguments
+            key = (str(b["x"].dtype).split(".")[-1], shape_key(_name, b))
+            seen[_name][key] = seen[_name].get(key, 0) + 1
+            return _orig(*a, **k)
+
+        setattr(kernels, name, rec)
+        undo.append((name, orig))
+    prev = os.environ.get("BABE_INT8_MINC")
+    try:
+        args = default_config(list(TINY))
+        m = CQTDiffPlus.from_config(args).init(seed=1, device="cpu")
+        _random_flagship_like(m.net, 2)
+        edm = EDM.from_config(args)
+        m.to("cuda")
+        L = int(args.exp.audio_len)
+        rng = np.random.default_rng(17)
+
+        def card(a):
+            return torch.tensor(a.astype(np.float32), device="cuda")
+
+        m.net.requires_grad_(True)
+        sigma = card(np.full((4, 1), 0.2))
+        e2, _ = edm.loss_fn(None, m.apply,
+                            card(0.1 * rng.standard_normal((4, L))),
+                            sigma=sigma,
+                            noise=sigma * card(rng.standard_normal((4, L))))
+        e2.mean().backward()
+        m.net.requires_grad_(False)
+        m.net.zero_grad(set_to_none=True)
+        m.net.remat = False  # the test CLI serves without remat
+        os.environ["BABE_INT8_MINC"] = "16"
+        for prec in ("bf16", "int8"):
+            m.net.set_precision(prec)
+            xt = card(0.1 * rng.standard_normal((1, L))).requires_grad_(True)
+            y = m.fused_denoiser(edm)(xt, card(np.full((1, 1), 0.2)))
+            torch.autograd.grad((y * y).sum(), xt)
+        torch.cuda.synchronize()
+    finally:
+        for name, orig in undo:
+            setattr(kernels, name, orig)
+        if prev is None:
+            os.environ.pop("BABE_INT8_MINC", None)
+        else:
+            os.environ["BABE_INT8_MINC"] = prev
+    return seen
+
+
+def _tiny_net_checks() -> bool:
+    """Every kernel at each shape the capability phase's tiny network
+    launches it at (``_tiny_launches``), against its plain version on
+    seeded inputs: K1, K2 and its backward and K3 within TOL (K2 in fp32
+    as ``_stage_fwd_case`` holds it), ``conv_dw`` and ``fused_stage_dw``
+    within DW_TOL, each line naming the route taken.  That phase's gates
+    read the tiny network's restorations, and its widths run the older
+    tiles, not the stage engine; a launcher the recording never saw
+    fails."""
+    import torch
+
+    from babe_tpu_torch import kernels
+    from babe_tpu_torch.ops import conv_kernels as ck
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(16)
+    seen = _tiny_launches()
+    ok = True
+    for name in TINY_LAUNCHERS:
+        if not seen[name]:
+            log(f"tiny network: {name} was never launched FAIL")
+            ok = False
+    log("tiny network launches (dtype, shape): " + "; ".join(
+        f"{name[7:]} {sorted(v.items())}" for name, v in seen.items()))
+
+    def stage_inputs(B, F, T, C, dtype):
+        x = torch.randn((B, F, T, C), generator=g, device=dev).to(dtype)
+        w = (torch.randn((5, 3, C, C), generator=g, device=dev)
+             / math.sqrt(15 * C)).to(dtype)
+        a = 0.5 + torch.rand((B, C), generator=g, device=dev)
+        s = torch.randn((B, C), generator=g, device=dev)
+        return x, a, s, w
+
+    for (dn, (B, F, T, C, N, d, tr)), n in sorted(
+            seen["launch_conv5x3"].items()):
+        dtype = getattr(torch, dn)
+        x = torch.randn((B, F, T, C), generator=g, device=dev).to(dtype)
+        w = (torch.randn((5, 3, C, N), generator=g, device=dev)
+             / math.sqrt(15 * C)).to(dtype)
+        wf = w.transpose(2, 3).contiguous() if tr else w
+        if tr:  # an input gradient, run from the forward kernel as above
+            w = ck._flip_io(wf)
+        y = kernels.launch_conv5x3(x, wf, d, transposed=tr)
+        ref = ck.conv_ref(x, w, d)
+        torch.cuda.synchronize()
+        e = errs(y, ref)
+        good = within(e, dn)
+        ok &= good
+        log(f"K1 {dn:8s} [{K1_ROUTES[kernels.conv5x3_route(dtype, C, N)]}]"
+            f" B={B} F={F:3d} T={T:4d} C={C:3d} N={N:3d} d={d:2d}"
+            f"{' transposed' if tr else ''}: max_abs={e[0]:.3e} "
+            f"max_rel={e[1]:.2e} l2_rel={e[2]:.2e} "
+            f"{'ok' if good else 'FAIL'} (tiny x{n})")
+    for (dn, (B, F, T, C, d)), n in sorted(
+            seen["launch_fused_stage"].items()):
+        good, line, _, _, _ = _stage_fwd_case(
+            *stage_inputs(B, F, T, C, getattr(torch, dn)), d)
+        ok &= good
+        log(f"{line} (tiny x{n})")
+    for (dn, (B, F, T, C, d)), n in sorted(
+            seen["launch_fused_stage_bwd"].items()):
+        x, a, s, w = stage_inputs(B, F, T, C, getattr(torch, dn))
+        y, _, c = ck._dil_stage_parts(x, a, s, w, d)
+        good, line, _, _ = _stage_bwd_case(x, a, s, w, y, c, d, g)
+        ok &= good
+        log(f"{line} (tiny x{n})")
+    for (dn, (B, F, T, C, d)), n in sorted(
+            seen["launch_fused_stage_int8"].items()):
+        ok &= _kernel_int8_stage(B, F, T, C, d, 0, getattr(torch, dn), g,
+                                 None, None, edge=f"tiny x{n}")
+    for (dn, (B, F, T, C, N, ks, dil)), n in sorted(
+            seen["launch_conv_dw"].items()):
+        _, _, (_, good, line) = _dw_conv_case(g, B, F, T, C, N, ks, dil,
+                                              getattr(torch, dn))
+        ok &= good
+        log(f"{line} (tiny x{n})")
+    for (dn, (B, F, T, C, d)), n in sorted(
+            seen["launch_fused_stage_dw"].items()):
+        _, _, good, line = _dw_stage_case(g, B, F, T, C, d,
+                                          getattr(torch, dn))
+        ok &= good
+        log(f"{line} (tiny x{n})")
     return ok
 
 
@@ -1093,6 +1299,75 @@ DW_STAGE_EDGE = [(2, 64, 32, 96, 2), (2, 48, 20, 64, 1),
                  (1, 16, 40, 8, 2)]
 
 
+def _dw_judge(what, dw, ref, dn):
+    """A weight gradient against its plain version within DW_TOL."""
+    e = errs(dw, ref)
+    good = e[1] <= DW_TOL["max_rel"] and e[2] <= DW_TOL["l2_rel"]
+    return e, good, (f"{what} {dn:8s}: max_abs={e[0]:.3e} max_rel="
+                     f"{e[1]:.2e} l2_rel={e[2]:.2e} "
+                     f"{'ok' if good else 'FAIL'}")
+
+
+def _dw_route(dtype, C, N) -> str:
+    from babe_tpu_torch import kernels
+
+    return ("mma", "simt", "fold")[kernels.dw_route(dtype, C, N)]
+
+
+def _dw_conv_case(g, Bc, F, T, C, N, ks, dil, dtype):
+    """``conv_dw`` at one shape on inputs drawn from ``g``: returns (x, g_y,
+    (errors, good, log line naming the route))."""
+    import torch
+
+    from babe_tpu_torch import kernels
+    from babe_tpu_torch.ops import conv_kernels as ck
+
+    dev, dn = torch.device("cuda"), str(dtype).split(".")[-1]
+    x = torch.randn((Bc, F, T, C), generator=g, device=dev).to(dtype)
+    gy = torch.randn((Bc, F, T, N), generator=g, device=dev).to(dtype)
+    dw = kernels.launch_conv_dw(x, gy, ks, dil)
+    ref = ck.conv_dw_ref(x, gy, ks, dil)
+    torch.cuda.synchronize()
+    return x, gy, _dw_judge(
+        f"conv_dw [{_dw_route(dtype, C, N)}] B={Bc} F={F:3d} T={T:4d} "
+        f"C={C:3d} N={N:3d} k={ks} dil={dil}", dw, ref, dn)
+
+
+def _dw_stage_case(g, Bs, F, T, C, d, dtype):
+    """``fused_stage_dw`` and its operand pass ``stage_dw_operands`` at one
+    stage shape on inputs drawn from ``g`` (the operands within TOL, the
+    gradient within DW_TOL): returns (the launchers' arguments, (errors,
+    the operands' errors), good, log line naming the route)."""
+    import torch
+
+    from babe_tpu_torch import kernels
+    from babe_tpu_torch.ops import conv_kernels as ck
+
+    dev, dn = torch.device("cuda"), str(dtype).split(".")[-1]
+    x = torch.randn((Bs, F, T, C), generator=g, device=dev).to(dtype)
+    w = (torch.randn((5, 3, C, C), generator=g, device=dev)
+         / math.sqrt(15 * C)).to(dtype)
+    a = 0.5 + torch.rand((Bs, C), generator=g, device=dev)
+    s = torch.randn((Bs, C), generator=g, device=dev)  # opened gate
+    y, _ = ck.dil_stage_ref(x, a, s, w, d)
+    gy = torch.randn((Bs, F, T, C), generator=g, device=dev).to(dtype)
+    gm = torch.randn((2, Bs, C), generator=g, device=dev) / (F * T)
+    args = (x, a, s, y, gy, gm)
+    h, gc = kernels.launch_stage_dw_operands(*args)
+    rh, rgc = ck.stage_dw_operands_ref(*args)
+    dw = kernels.launch_fused_stage_dw(*args, d)
+    ref = ck.dil_stage_dw_ref(*args, d)
+    torch.cuda.synchronize()
+    eo = max(errs(h, rh), errs(gc, rgc), key=lambda e: e[1])
+    good_o = within(errs(h, rh), dn) and within(errs(gc, rgc), dn)
+    e, good, line = _dw_judge(
+        f"fused_stage_dw [{_dw_route(dtype, C, C)}] B={Bs} F={F:3d} "
+        f"T={T:4d} C={C:3d} d={d:2d}", dw, ref, dn)
+    line += (f"; operands h, g_pre*s max_rel={eo[1]:.2e} l2_rel="
+             f"{eo[2]:.2e} {'ok' if good_o else 'FAIL'}")
+    return args, (e, eo), good and good_o, line
+
+
 def _kernel_dw(account, k1_shapes, k2_shapes, B: int = 4) -> bool:
     """The weight-gradient kernels against their plain versions, bf16 and
     fp32: at the training batch (B = 4, 184184 samples) ``conv_dw`` at the
@@ -1107,63 +1382,16 @@ def _kernel_dw(account, k1_shapes, k2_shapes, B: int = 4) -> bool:
     from babe_tpu_torch import kernels
     from babe_tpu_torch.ops import conv_kernels as ck
 
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(6)
+    g = torch.Generator(device="cuda").manual_seed(6)
     ok = True
-
-    def judge(what, dw, ref, dn):
-        e = errs(dw, ref)
-        good = e[1] <= DW_TOL["max_rel"] and e[2] <= DW_TOL["l2_rel"]
-        return e, good, (f"{what} {dn:8s}: max_abs={e[0]:.3e} max_rel="
-                         f"{e[1]:.2e} l2_rel={e[2]:.2e} "
-                         f"{'ok' if good else 'FAIL'}")
-
-    def route(dtype, C, N):
-        return ("mma", "simt", "fold")[kernels.dw_route(dtype, C, N)]
-
-    def conv_case(Bc, F, T, C, N, ks, dil, dtype, dn):
-        x = torch.randn((Bc, F, T, C), generator=g, device=dev).to(dtype)
-        gy = torch.randn((Bc, F, T, N), generator=g, device=dev).to(dtype)
-        dw = kernels.launch_conv_dw(x, gy, ks, dil)
-        ref = ck.conv_dw_ref(x, gy, ks, dil)
-        torch.cuda.synchronize()
-        return x, gy, judge(
-            f"conv_dw [{route(dtype, C, N)}] B={Bc} F={F:3d} T={T:4d} "
-            f"C={C:3d} N={N:3d} k={ks} dil={dil}", dw, ref, dn)
-
-    def stage_case(Bs, F, T, C, d, dtype, dn):
-        x = torch.randn((Bs, F, T, C), generator=g, device=dev).to(dtype)
-        w = (torch.randn((5, 3, C, C), generator=g, device=dev)
-             / math.sqrt(15 * C)).to(dtype)
-        a = 0.5 + torch.rand((Bs, C), generator=g, device=dev)
-        s = torch.randn((Bs, C), generator=g, device=dev)  # opened gate
-        y, _ = ck.dil_stage_ref(x, a, s, w, d)
-        gy = torch.randn((Bs, F, T, C), generator=g, device=dev).to(dtype)
-        gm = torch.randn((2, Bs, C), generator=g, device=dev) / (F * T)
-        args = (x, a, s, y, gy, gm)
-        h, gc = kernels.launch_stage_dw_operands(*args)
-        rh, rgc = ck.stage_dw_operands_ref(*args)
-        dw = kernels.launch_fused_stage_dw(*args, d)
-        ref = ck.dil_stage_dw_ref(*args, d)
-        torch.cuda.synchronize()
-        eo = max(errs(h, rh), errs(gc, rgc), key=lambda e: e[1])
-        good_o = within(errs(h, rh), dn) and within(errs(gc, rgc), dn)
-        e, good, line = judge(
-            f"fused_stage_dw [{route(dtype, C, C)}] B={Bs} F={F:3d} "
-            f"T={T:4d} C={C:3d} d={d:2d}", dw, ref, dn)
-        line += (f"; operands h, g_pre*s max_rel={eo[1]:.2e} l2_rel="
-                 f"{eo[2]:.2e} {'ok' if good_o else 'FAIL'}")
-        return args, (e, eo), good and good_o, line
-
     for dtype in (torch.bfloat16, torch.float32):
-        dn = str(dtype).split(".")[-1]
         isz = torch.tensor([], dtype=dtype).element_size()
         for (F, T, C, N, d, role), count in sorted(k1_shapes.items()):
             if role == "stage shape":
                 continue
             count = 1 if role == "pyramid fwd" else 0
-            x, gy, (e, good, line) = conv_case(B, F, T, C, N, (5, 3), (d, 1),
-                                               dtype, dn)
+            x, gy, (e, good, line) = _dw_conv_case(
+                g, B, F, T, C, N, (5, 3), (d, 1), dtype)
             ok &= good
             t_k = cuda_time(lambda: kernels.launch_conv_dw(
                 x, gy, (5, 3), (d, 1)))
@@ -1177,7 +1405,8 @@ def _kernel_dw(account, k1_shapes, k2_shapes, B: int = 4) -> bool:
                 f"plain={t_p:.4f} cudnn={t_l:.4f}")
             account("conv_dw", count, dtype, t_k, t_p, t_l, flops, nbytes, e)
         for (F, T, C, d), count in sorted(k2_shapes.items()):
-            args, (e, eo), good, line = stage_case(B, F, T, C, d, dtype, dn)
+            args, (e, eo), good, line = _dw_stage_case(g, B, F, T, C, d,
+                                                        dtype)
             ok &= good
             t_k = cuda_time(lambda: kernels.launch_fused_stage_dw(*args, d))
             t_p = cuda_time(lambda: ck.dil_stage_dw_ref(*args, d), reps=2)
@@ -1203,19 +1432,19 @@ def _kernel_dw(account, k1_shapes, k2_shapes, B: int = 4) -> bool:
             account("stage_dw_operands", count, dtype, t_o, t_op, 0.0,
                     o_flops, o_bytes, eo, op_dtype=torch.float32)
         for Bc, F, T, C, N, ks, dil in DW_EDGE:
-            _, _, (e, good, line) = conv_case(Bc, F, T, C, N, ks, dil, dtype,
-                                              dn)
+            _, _, (e, good, line) = _dw_conv_case(g, Bc, F, T, C, N, ks,
+                                                   dil, dtype)
             ok &= good
             log(f"{line} (edge)")
         for Bs, F, T, C, d in DW_STAGE_EDGE:
-            _, _, good, line = stage_case(Bs, F, T, C, d, dtype, dn)
+            _, _, good, line = _dw_stage_case(g, Bs, F, T, C, d, dtype)
             ok &= good
             log(f"{line} (edge)")
     return ok
 
 
 def _kernel_int8_stage(B, F, T, C, d, count, dtype, g, account,
-                       library_conv, edge=False) -> bool:
+                       library_conv, edge: str = "") -> bool:
     """K3 at one stage shape against its plain version on the same inputs:
     the share of int8 conv inputs that differ (at most 1e-4); y within TOL
     when none differs, else at a relative L2 error of 1e-3; the amax row to
@@ -1254,7 +1483,7 @@ def _kernel_int8_stage(B, F, T, C, d, count, dtype, g, account,
             and not (dtype == torch.bfloat16 and count > 0
                      and route != "engine"))
     line = (f"K3 {dn:8s} [{route}] B={B} F={F:3d} T={T:4d} C={C:3d} "
-            f"d={d:2d}{' (edge)' if edge else f' x{count}'}: q flips "
+            f"d={d:2d}{f' ({edge})' if edge else f' x{count}'}: q flips "
             f"{flips} ({share:.2e}) y max_abs={ey[0]:.3e} "
             f"max_rel={ey[1]:.2e} l2_rel={ey[2]:.2e}; sums l2_rel="
             f"{esum[2]:.2e} amax rel={amax_rel:.1e} "
@@ -2592,6 +2821,359 @@ def phase_quality(results: dict, sigma_gate: float = 0.02):
                           "sigma_gate": sigma_gate}
 
 
+def phase_iir(results: dict, t: float = 0.5):
+    """One guided evaluation of informed BWE at the flagship (seed-0
+    weights, bf16, 184184 samples, the blind_bwe tester's guidance) with
+    the firwin degradation (order 500) and with each IIR degradation
+    (cheby1 of order 6, ripple 0.05; the biquad, Q 0.707; fc 1000 Hz), and
+    ``iir.lfilter`` alone on the segment without and with its backward.
+    The IIR recursion is a Python loop over time, some 7 small launches a
+    sample each way, so these seconds are what the cheby1 and biquad
+    modes cost on the card per evaluation.  Reported, not gated; not run
+    by default."""
+    import torch
+
+    from babe_tpu_torch.config import default_config
+    from babe_tpu_torch.diffusion.edm import EDM
+    from babe_tpu_torch.models.cqtdiff import CQTDiffPlus
+    from babe_tpu_torch.ops import iir
+    from babe_tpu_torch.sampling import degradations as D
+    from babe_tpu_torch.sampling.heun import Sampler, SamplerConfig
+
+    base = ["exp=maestro22k_8s", "network=cqtdiff+", "tester=blind_bwe",
+            "tester.bandwidth_extension.filter.fc=1000"]
+    args = default_config(base)
+    fs, L = float(args.exp.sample_rate), int(args.exp.audio_len)
+    model = CQTDiffPlus.from_config(args).init(seed=0, device="cpu")
+    model.to("cuda")
+    model.net.requires_grad_(False)
+    edm = EDM.from_config(args)
+    s = Sampler(model.fused_denoiser(edm), edm, SamplerConfig.from_args(args),
+                device="cuda")
+    x0 = torch.tensor(_lowpassed_audio(L, int(fs), seed=50)[None],
+                      device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(51)
+    x = x0 + t * torch.randn(x0.shape, generator=gen, device="cuda")
+    secs = {}
+
+    def timed(label, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[label] = time.perf_counter() - t0
+        if not torch.isfinite(out).all():
+            raise RuntimeError(f"iir: {label} is not finite")
+
+    for ftype, extra in (("firwin", ["tester.bandwidth_extension.filter."
+                                     "order=500"]),
+                         ("cheby1", ["tester.bandwidth_extension.filter."
+                                     "order=6"]),
+                         ("biquad", [])):
+        a = default_config(base + [
+            f"tester.bandwidth_extension.filter.type={ftype}", *extra])
+        filt, _ = D.prepare_filter(a, fs)
+        deg = D.degradation_from_filter(filt, ftype)
+        with torch.no_grad():
+            y = deg(x0)
+        if ftype == "firwin":  # a warm-up evaluation first
+            s._score(x, t, y, deg, gen)
+        timed(f"guided evaluation, {ftype}",
+              lambda: s._score(x, t, y, deg, gen))
+        if ftype == "cheby1":
+            b_, a_ = filt
+            with torch.no_grad():
+                timed("lfilter (cheby1), forward",
+                      lambda: iir.lfilter(x, a_, b_))
+            xg = x.detach().requires_grad_(True)
+            timed("lfilter (cheby1), forward and backward",
+                  lambda: torch.autograd.grad(
+                      iir.lfilter(xg, a_, b_).square().sum(), xg)[0])
+    log(f"iir: {L} samples, bf16 flagship, seed-0 weights, t = {t}: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in secs.items()))
+    results["iir"] = secs
+
+
+# the cli phase: its modes, in two runs of the CLI at two depths; the
+# files each mode writes per test item (the unconditional run's one wav)
+CLI_RUNS = ((35, ("blind_bwe", "bwe")),
+            (8, ("inpainting", "declipping", "comp_sens", "phase_retrieval",
+                 "unconditional")))
+CLI_FILES = {
+    "blind_bwe": ["blind_bwe_original/{n}.wav", "blind_bwe_degraded/{n}.wav",
+                  "blind_bwe_reconstructed/{n}.wav",
+                  "blind_bwe_estimate/{n}.wav", "blind_bwe/{n}_rid.npz"],
+    "bwe": ["bwe_original/{n}.wav", "bwe_degraded/{n}.wav",
+            "bwe_reconstructed/{n}.wav"],
+    "inpainting": ["inpainting/{n}.wav"],
+    "declipping": ["bwe_declipped/{n}.wav"],
+    "comp_sens": ["bwe_cs/{n}.wav"],
+    "phase_retrieval": ["bwe_pr/{n}.wav"],
+    "unconditional": ["unconditional/unconditional.wav"],
+}
+CLI_KERNELS = ("conv5x3", "fused_stage", "fused_stage_bwd", "filter_fit")
+
+
+def _results_finite(res) -> bool:
+    """Every array in a mode's result (arrays, or (pred, filter) pairs)
+    is finite, and there is at least one."""
+    arrs = [np.asarray(a) for item in (res if isinstance(res, list)
+                                       else [res])
+            for a in (item if isinstance(item, tuple) else (item,))]
+    return bool(arrs) and all(np.isfinite(a).all() for a in arrs)
+
+
+def phase_cli(results: dict):
+    """``python -m babe_tpu_torch.test``'s ``main``, in-process, at the
+    flagship (exp=maestro22k_8s, network=cqtdiff+, bf16) on seeded weights
+    written as a .ckpt and two seeded test wavs (dset=musicnet, 9 s at
+    22.05 kHz, cropped to 184184 samples by the test set): blind_bwe and
+    bwe (firwin, order 500, fc 1000 Hz) at tester.T = 35, then
+    inpainting, declipping, comp_sens, phase_retrieval and unconditional
+    (2 clips) at tester.T = 8.  The counters are zeroed just before each
+    CLI run and read just after; each mode's seconds per item and its
+    launches of K1, K2, K2's backward and the fit come from a spy on its
+    Tester method.  blind_bwe's seconds are split between card syncs into
+    its request (``predict_blind_bwe``) and the host work around it (the
+    low-pass, the metrics, the wav writes, the trajectory dump, the
+    animation and the filter plot, the host copies); after the runs its
+    first request is replayed from the same generator state with rid=True
+    and with rid=False, which prices the trajectory the CLI keeps.  Fails
+    on a missing file, a non-finite result, or a guided mode that did not
+    launch K1, K2 and K2's backward (and the fit, for blind_bwe)."""
+    import shutil
+
+    import torch
+
+    from babe_tpu_torch import kernels
+    from babe_tpu_torch import test as tcli
+    from babe_tpu_torch.config import default_config
+    from babe_tpu_torch.sampling.blind import BlindSampler
+    from babe_tpu_torch.testers import tester as tmod
+    from babe_tpu_torch.testers.tester import Tester
+    from babe_tpu_torch.utils.logging import MetricsLogger
+
+    methods = {"blind_bwe": "test_blind_bwe", "bwe": "test_bwe",
+               "inpainting": "test_inpainting",
+               "declipping": "test_declipping",
+               "comp_sens": "test_comp_sens",
+               "phase_retrieval": "test_phase_retrieval",
+               "unconditional": "sample_unconditional"}
+    from babe_tpu_torch.utils import logging as ulog
+
+    tmp = tempfile.mkdtemp(prefix="babe_cli_")
+    prev = os.environ.pop("BABE_PRECISION", None)
+    per_mode: dict = {}
+    dumps: list = []  # seconds in the trajectory dumps (compressed .npz)
+    save_trajectory = ulog.save_trajectory
+    undo = []
+
+    def timed_dump(*a, **k):
+        t0 = time.perf_counter()
+        out = save_trajectory(*a, **k)
+        dumps.append(time.perf_counter() - t0)
+        return out
+
+    parts: list = []  # (piece, seconds between card syncs) of a mode
+    replay: list = []  # the first blind request: sampler, generator, y
+    predict = BlindSampler.predict_blind_bwe
+
+    def keep_first(self, gen, y, *a, **k):
+        if not replay:
+            replay.append((self, gen.get_state(), gen.device,
+                           y.detach().clone()))
+        return predict(self, gen, y, *a, **k)
+
+    ulog.save_trajectory = timed_dump
+    BlindSampler.predict_blind_bwe = keep_first
+    undo_parts = _spied([
+        (BlindSampler, "predict_blind_bwe", "request"),
+        (Tester, "apply_lowpass_fcA", "low-pass"),
+        (tmod, "lsd", "metrics"), (tmod, "lsd_high_band", "metrics"),
+        (tmod, "filter_db_mse", "metrics"), (MetricsLogger, "log", "metrics"),
+        (tmod, "write_audio_file", "wav writes"),
+        (ulog, "save_trajectory", "trajectory dump"),
+        (ulog, "diffusion_spec_animation", "animation"),
+        (ulog, "plot_filter_response", "filter plot"),
+        (Tester, "_host", "host copies")], parts)
+    try:
+        base = ["exp=maestro22k_8s", "network=cqtdiff+", "tester=blind_bwe"]
+        ckpt = _flagship_ckpt(default_config(base), tmp)
+        test_dir = os.path.join(tmp, "test")
+        os.makedirs(test_dir)
+        _seeded_wavs(test_dir, 2, 9.0, 22050, seed=40)
+        names = sorted(os.path.splitext(f)[0] for f in os.listdir(test_dir))
+        out_dir = os.path.join(tmp, "out")
+        for mode, meth in methods.items():
+            orig = getattr(Tester, meth)
+
+            def spy(self, *a, _orig=orig, _mode=mode, **k):
+                torch.cuda.synchronize()
+                before = dict(kernels.LAUNCHES)
+                dumps.clear()
+                parts.clear()
+                t0 = time.perf_counter()
+                out = _orig(self, *a, **k)
+                torch.cuda.synchronize()
+                split: dict = {}
+                for piece, sec in parts:
+                    split[piece] = split.get(piece, 0.0) + sec
+                per_mode[_mode] = {
+                    "s": time.perf_counter() - t0, "dump_s": sum(dumps),
+                    "split": split,
+                    "launches": {n: kernels.LAUNCHES[n] - before[n]
+                                 for n in CLI_KERNELS}}
+                return out
+
+            setattr(Tester, meth, spy)
+            undo.append((meth, orig))
+        counts = {}
+        for T, modes in CLI_RUNS:
+            argv = base + [
+                f"model_dir={out_dir}", f"tester.checkpoint={ckpt}",
+                "dset=musicnet", f"dset.test.path={test_dir}",
+                "dset.test.num_samples=2", f"tester.T={T}",
+                "tester.bandwidth_extension.filter.type=firwin",
+                "tester.bandwidth_extension.filter.order=500",
+                "tester.bandwidth_extension.filter.fc=1000",
+                "tester.unconditional.num_samples=2",
+                "tester.modes=[" + ",".join(modes) + "]"]
+            log(f"cli: python -m babe_tpu_torch.test {' '.join(argv)}")
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = tcli.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            run_counts = dict(kernels.LAUNCHES)
+            log(f"cli: tester.T={T} run of {list(modes)}: {wall:.1f} s "
+                f"(model build and load included); launches {run_counts}")
+            for k, v in run_counts.items():
+                counts[k] = counts.get(k, 0) + v
+            for mode in modes:
+                if mode not in res or not _results_finite(res[mode]):
+                    raise RuntimeError(f"cli: mode {mode} gave no result or "
+                                       f"a non-finite one")
+                missing = [f for n in names for f in CLI_FILES[mode]
+                           if not os.path.exists(os.path.join(
+                               out_dir, "outputs", f.format(n=n)))]
+                if missing:
+                    raise RuntimeError(f"cli: mode {mode} did not write "
+                                       f"{missing}")
+                m = per_mode[mode]
+                items = 1 if mode == "unconditional" else len(names)
+                log(f"cli: {mode} (T={T}): {m['s'] / items:.2f} s per "
+                    f"{'run of 2 clips' if items == 1 else 'item'} (of it "
+                    f"{m['dump_s'] / items:.2f} s in trajectory dumps), "
+                    f"launches {m['launches']}")
+                need = (("conv5x3", "fused_stage") if mode == "unconditional"
+                        else ("conv5x3", "fused_stage", "fused_stage_bwd")
+                        + (("filter_fit",) if mode == "blind_bwe" else ()))
+                for n in need:
+                    if m["launches"][n] <= 0:
+                        raise RuntimeError(f"cli: mode {mode} never launched "
+                                           f"{n}")
+        with open(os.path.join(out_dir, "outputs", "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        for r in recs:
+            log(f"cli: metrics.jsonl {r['mode']} {r['item']}: lsd "
+                f"{r['lsd']:.3f} (degraded {r['lsd_degraded']:.3f}), high "
+                f"band {r['lsd_high_band']:.3f} (degraded "
+                f"{r['lsd_high_band_degraded']:.3f}), fc "
+                f"{np.round(r['fc_est'], 1).tolist()}")
+        if len(recs) != len(names) or not all(
+                np.isfinite([r["lsd"], r["lsd_high_band"]]).all()
+                for r in recs):
+            raise RuntimeError("cli: blind_bwe's records are missing or not "
+                               "finite")
+        results["cli"] = per_mode
+        results["launches_cli"] = counts
+        # blind_bwe's seconds per item by piece, the rest untimed host work
+        b, items = per_mode["blind_bwe"], len(names)
+        rest = b["s"] - sum(b["split"].values())
+        log("cli: blind_bwe per item: " + ", ".join(
+            f"{piece} {sec / items:.3f} s" for piece, sec in
+            b["split"].items()) + f", rest {rest / items:.3f} s (of "
+            f"{b['s'] / items:.3f} s)")
+        sampler, state, gdev, y = replay[0]
+        for rid in (True, False):
+            gen = torch.Generator(device=gdev)
+            gen.set_state(state)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            predict(sampler, gen, y, rid=rid)
+            torch.cuda.synchronize()
+            b[f"replay_rid_{rid}_s"] = time.perf_counter() - t0
+        log(f"cli: blind_bwe's first request replayed: rid=True "
+            f"{b['replay_rid_True_s']:.3f} s, rid=False "
+            f"{b['replay_rid_False_s']:.3f} s")
+    finally:
+        for owner, name, orig in reversed(undo_parts):
+            setattr(owner, name, orig)
+        BlindSampler.predict_blind_bwe = predict
+        ulog.save_trajectory = save_trajectory
+        for meth, orig in undo:
+            setattr(Tester, meth, orig)
+        if prev is not None:
+            os.environ["BABE_PRECISION"] = prev
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _tool_json(module: str, argv: list[str], timeout: float) -> dict:
+    """Run ``python -m <module> <argv>`` from the repository root; log its
+    output's tail and return the JSON object of its last line.  A non-zero
+    exit fails unless the JSON line says why (the caller checks it)."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", module, *argv], cwd=repo,
+                       capture_output=True, text=True, timeout=timeout)
+    lines = r.stdout.strip().splitlines()
+    for line in lines[-12:]:
+        log(f"  {module.split('.')[-1]}: {line[:300]}")
+    if r.returncode not in (0, 1) or not lines:
+        raise RuntimeError(f"{module} failed (exit {r.returncode}):\n"
+                           f"{r.stderr[-3000:]}")
+    out = json.loads(lines[-1])
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_capability(results: dict):
+    """The quality gates on trained weights, on the card:
+    ``babe_tpu_torch.tools.capability_e2e`` trains the tiny network for its
+    own 1500 iterations (the length the gates are calibrated at) on seeded
+    sawtooths and serves blind BWE on two low-passed probes at its own
+    tester.T = 15 (gate: high-band LSD below the
+    degraded input's on every probe), then
+    ``babe_tpu_torch.tools.quality_int8 --mode lsd`` serves that checkpoint
+    in bf16 and in int8 with every tiny stack on K3 (gate: |mean LSD
+    delta| < 0.05 dB, K3 launched).  Both run as their own processes; each
+    prints one JSON line, logged here."""
+    import shutil
+
+    tmp = tempfile.mkdtemp(prefix="babe_cap_")
+    try:
+        cap = _tool_json("babe_tpu_torch.tools.capability_e2e",
+                         ["--workdir", tmp, "--device", "cuda"], timeout=900)
+        log(f"capability: {json.dumps(cap)}")
+        its = cap["its"]
+        log(f"capability: training {its} its took {cap['train_s']:.1f} s "
+            f"({cap['train_s'] / its * 1e3:.1f} ms per iteration, process "
+            f"start and data included); blind test {cap['test_s']:.1f} s")
+        q = _tool_json("babe_tpu_torch.tools.quality_int8",
+                       ["--mode", "lsd", "--workdir", tmp, "--device",
+                        "cuda"], timeout=600)
+        log(f"quality_int8 --mode lsd: {json.dumps(q)}")
+        results["capability"] = {"capability_e2e": cap, "quality_int8": q}
+        if not cap["improved_all"]:
+            raise RuntimeError("capability: high-band LSD did not improve "
+                               "on every probe")
+        if not (q["gate_pass"] and q["k3_launches_int8"] > 0):
+            raise RuntimeError("capability: the int8 LSD gate failed or K3 "
+                               "did not launch")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def _dev_us(e) -> float:
     """An event's own device time in microseconds (the attribute's name
     differs between torch versions)."""
@@ -2684,9 +3266,10 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--phases",
                    default="identify,kernels,probe,check,requests,long,"
-                           "train,quality",
+                           "train,quality,cli,capability",
                    help="comma list; 'profile' (not run by default) breaks "
-                        "one guided evaluation down")
+                        "one guided evaluation down, 'iir' (nor this) times "
+                        "one with each IIR degradation")
     a = p.parse_args(argv)
     try:
         import torch
@@ -2706,7 +3289,8 @@ def main(argv=None) -> int:
         return 2
     phases = a.phases.split(",")
     results: dict = {}
-    if {"identify", "kernels", "probe", "train"} & set(phases):
+    if {"identify", "kernels", "probe", "train", "cli",
+            "capability"} & set(phases):
         phase_identify(kernels)
     if "kernels" in phases:
         phase_kernels(results)
@@ -2722,6 +3306,12 @@ def main(argv=None) -> int:
         phase_train(results)
     if "quality" in phases:
         phase_quality(results)
+    if "cli" in phases:
+        phase_cli(results)
+    if "capability" in phases:
+        phase_capability(results)
+    if "iir" in phases:
+        phase_iir(results)
     if "profile" in phases:
         phase_profile()
     launches = results.get("launches", {})
