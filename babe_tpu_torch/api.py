@@ -9,16 +9,24 @@ Counterpart of ``babe_tpu/api.py``:
     audio, info = model.enhance(x, fs, filter=(1000.0, -40.0))  # informed
     fc, A = model.estimate_filter(x, fs)
     clips = model.generate(n=1, seed=0)
+    model = BABE.load("MAESTRO_22k_8s-850000.pt")        # reference torch ckpt
     model8 = BABE.load("exp/22k_8s-850000.ckpt", precision="int8")
     model = BABE.load(ckpt, denoiser_checkpoint="denoiser.ckpt")
     audio, info = model.enhance(x, fs, denoise=True)    # STFT denoiser first
 
 The model runs on the card unless ``device="cpu"`` is asked for.  With
-``precision="int8"`` the network's dilation stacks of at least 96 channels
-run the int8 stage (kernel K3, ``csrc/fused_stage_int8.cu``) and the rest
-stays in the model's compute dtype (kernels K1 and K2); the precision
-belongs to the loaded model, so two models of different precision live
-side by side in one process.
+``precision="int8"`` the network reads the JAX package's int8 knobs from
+the environment (``BABE_INT8_SCALE``, ``BABE_INT8_MINC``,
+``BABE_INT8_OPS``, ``BABE_INT8_FUSED``, ``BABE_INT8_BWD``; see
+``models/cqtdiff.py``): by default its dilation stacks of at least 96
+channels run the fused int8 stage (kernel K3,
+``csrc/fused_stage_int8.cu``) and the rest stays in the model's compute
+dtype (kernels K1 and K2).  The JAX API's own ``precision="int8"`` (the
+unfused int8 convs, C8, and the guidance gradient's input cotangent in
+int8) is ``BABE_INT8_FUSED=0 BABE_INT8_BWD=1``.  The precision and its
+knobs belong to the loaded model, read once at load, so two models of
+different precision live side by side in one process; ``precision=
+"bf16"`` (or None) ignores the knobs.
 
 ``enhance`` takes a recording of any length at any sample rate: it is
 resampled to the model's rate, optionally run through the STFT denoiser
@@ -122,29 +130,34 @@ class BABE:
              denoiser_checkpoint=None, precision: str | None = None,
              device="cuda") -> "BABE":
         """Build the model from a ``.ckpt`` pickle (its saved network, exp
-        and diffusion config are adopted) and load the weights.
-        ``overrides`` are dotted config assignments applied on top, e.g.
-        ``"tester.T=20"``.  ``device`` defaults to the card.
+        and diffusion config are adopted), or from a reference ``.pt``
+        torch checkpoint (built at the published flagship config with the
+        checkpoint-compatible CQT frame, ``network=cqtdiff+_ckpt``), and
+        load the weights.  ``overrides`` are dotted config assignments
+        applied on top, e.g. ``"tester.T=20"``.  ``device`` defaults to the
+        card.
 
         ``precision``: None or "bf16" serve in the model's compute dtype
-        (bf16 at the flagship config, ``exp.use_bf16``); "int8" runs every
-        dilation stack of at least 96 channels through the int8 stage with
-        analytic-bound activation scales and per-output-channel weight
-        scales, quantized once per loaded set of weights.  The guidance
-        gradient through those stages is straight-through (the exact
-        stage's).  Another value raises ``ValueError``.
+        (bf16 at the flagship config, ``exp.use_bf16``); "int8" runs the
+        convs the int8 knobs of the environment select (module doc) in
+        int8, with per-output-channel weight scales quantized once per
+        loaded set of weights: by default every dilation stack of at least
+        96 channels through the fused int8 stage with analytic-bound
+        activation scales, its guidance gradient straight-through (the
+        exact stage's).  Another value raises ``ValueError``.
 
         ``denoiser_checkpoint``: a ``.ckpt`` pickle of the STFT denoiser
-        (``{"params": tree}``, the JAX package's layout), built at
-        ``tester.denoiser``'s config on ``device``; ``enhance(...,
-        denoise=True)`` needs it.  A path that does not exist warns and
-        keeps a seeded init, as the JAX package does; a ``.pt`` raises."""
+        (``{"params": tree}``, the JAX package's layout) or a reference
+        ``.pt``, built at ``tester.denoiser``'s config on ``device``;
+        ``enhance(..., denoise=True)`` needs it.  A path that does not
+        exist warns and keeps a seeded init, as the JAX package does."""
         if precision not in PRECISIONS:
             raise ValueError(f"precision must be 'bf16', 'int8' or None, "
                              f"got {precision!r}")
         check_device(device)
         base: list[str] = []
-        saved = read_checkpoint(checkpoint).get("args")
+        saved = (None if checkpoint.endswith(".pt")
+                 else read_checkpoint(checkpoint).get("args"))
         if saved:
             net = dict(saved.get("network") or {})
             net.pop("callable", None)
@@ -158,6 +171,8 @@ class BABE:
             base += _flatten_overrides(dp, "diff_params")
             if "sigma_data" in dp and not isinstance(dp["sigma_data"], dict):
                 base.append(f"tester.diff_params.sigma_data={dp['sigma_data']}")
+        elif checkpoint.endswith(".pt"):
+            base.append("network=cqtdiff+_ckpt")
         base.append("tester=blind_bwe")
         args = default_config(base + list(overrides))
         args.exp["remat"] = False

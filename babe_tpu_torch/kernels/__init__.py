@@ -6,7 +6,7 @@ library name carries a hash of the sources, so an edited kernel rebuilds and
 a stale build is never picked up.  ``build()`` starts one ``nvcc`` per source,
 all at once.
 
-Thirteen kernels: ``conv5x3`` (K1, ``csrc/conv5x3.cu``), ``fused_stage``
+Seventeen kernels: ``conv5x3`` (K1, ``csrc/conv5x3.cu``), ``fused_stage``
 (K2), its operand pass ``stage_fwd_operand`` and ``fused_stage_bwd``
 (K2's backward), all in ``csrc/fused_stage.cu``, ``filter_fit`` (the
 blind sampler's filter fit, ``csrc/filter_fit.cu``), ``fused_stage_int8``
@@ -22,18 +22,22 @@ wgmma implicit GEMM or an older tile, by ``dilated_conv_route`` and
 in ``csrc/conv_dw.cu`` the weight-gradient GEMM, counted as ``conv_dw``
 (the dw of K1 and K4) or as ``fused_stage_dw`` (the dw of K2, after its
 operand pass ``stage_dw_operands``, which also forms the input of K2's
-backward engine).  Each call's route and cut is made here and passed to
-the kernel: the GEMM's tiles, chunks and splits by ``dw_plan``, K1's
-route (tiles, narrow in, narrow out) by ``conv5x3_route`` and
-``conv5x3_plan``, K2's, K2's backward's and K3's (a tile or the sm_90a
-stage engine, ``csrc/stage_mma_sm90.cuh``) by ``stage_fwd_route``,
-``stage_bwd_route``, ``stage_int8_route`` and ``stage_plan``.  The
-launchers here take tensors, check them, launch on PyTorch's current
-stream and raise when the launch status is not ``cudaSuccess``.  Each
-build keeps ptxas's report beside the library (``BUILD_LOG``, read by
-``ptxas_report``).  They
-count their launches in ``LAUNCHES`` (K4's also by route, in
-``ROUTE_LAUNCHES``); nothing else touches the counts.
+backward engine), and the unfused int8 path's: ``conv_int8`` (C8, the
+int8 (5,3) conv with its rescale, ``csrc/conv_int8.cu``: the stage
+engine's int8 loop or a tile, by ``conv_int8_route``) and Q8's per-item
+quantizers ``act_amax`` and ``act_quant`` and the int32 rescale
+``act_rescale`` (``csrc/quant_int8.cu``). Each call's route and cut is
+made here and passed to the kernel: the GEMM's tiles, chunks and splits by
+``dw_plan``, K1's route (tiles, narrow in, narrow out) by
+``conv5x3_route`` and ``conv5x3_plan``, K2's, K2's backward's and K3's (a
+tile or the sm_90a stage engine, ``csrc/stage_mma_sm90.cuh``) by
+``stage_fwd_route``, ``stage_bwd_route``, ``stage_int8_route`` and
+``stage_plan``. The launchers here take tensors, check them, launch on
+PyTorch's current stream and raise when the launch status is not
+``cudaSuccess``. Each build keeps ptxas's report beside the library
+(``BUILD_LOG``, read by ``ptxas_report``). They count their launches in
+``LAUNCHES`` (K4's also by route, in ``ROUTE_LAUNCHES``); nothing else
+touches the counts.
 """
 
 from __future__ import annotations
@@ -59,6 +63,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # kernel -> (source in csrc/, C entry point, ctypes argtypes)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _IP = ctypes.POINTER(ctypes.c_int)
+_LL = ctypes.c_longlong
 KERNELS = {
     "conv5x3": ("conv5x3", "babe_conv5x3", [_P] * 4 + [_I] * 7
                 + [_IP, _I, _P]),
@@ -92,6 +97,16 @@ KERNELS = {
                        + [_I] * 2 + [_P]),
     # the card's resident blocks for a cut (not a kernel launch)
     "dw_slots": ("conv_dw", "babe_dw_slots", [_I] * 5),
+    # C8: the unfused int8 (5,3) conv and its rescale
+    "conv_int8": ("conv_int8", "babe_conv_int8", [_P] * 6 + [_I] * 7
+                  + [_IP, _I, _P]),
+    # Q8: the per-item amax, the quantize at a per-item amax, the rescale
+    # of an int32 product
+    "act_amax": ("quant_int8", "babe_act_amax", [_P, _P, _I, _LL, _I, _P]),
+    "act_quant": ("quant_int8", "babe_act_quant", [_P] * 4
+                  + [_I, _LL, _I, _P]),
+    "act_rescale": ("quant_int8", "babe_act_rescale", [_P] * 3
+                    + [_I, _LL, _I, _I, _P]),
 }
 SOURCES = tuple(sorted({src for src, _, _ in KERNELS.values()}))
 
@@ -468,20 +483,26 @@ def launch_fused_stage(x, a, s, w, d: int, want_conv: bool = False):
 STAGE_TILE, STAGE_ENGINE = 0, 1
 STAGE_FWD, STAGE_BWD, STAGE_I8 = 0, 1, 2
 STAGE_PROBE = 3        # P2's plans: the main loop alone (probe_int8.cu)
+STAGE_C8 = 4           # C8's engine route: the int8 loop, a rescale epilogue
 STAGE_KB = 32          # contraction bytes per ring stage (a k-step)
 STAGE_KC = 16          # bf16 channels per ring stage (int8: 32)
 STAGE_PX = 24          # bf16 per staged window pixel (16 + pad): 48 bytes
 STAGE_RING = 5         # the cp.async ring
 STAGE_POS = 128        # positions per block: two warpgroups of 64
 STAGE_UNITS = 2        # 16-byte window units per thread (256 threads)
-STAGE_MIN_C = {STAGE_FWD: 64, STAGE_BWD: 64, STAGE_I8: 96}
+STAGE_MIN_C = {STAGE_FWD: 64, STAGE_BWD: 64, STAGE_I8: 96, STAGE_C8: 96}
 
 
 def stage_route(mode: int, dtype, B: int, F: int, T: int, C: int,
                 d: int) -> int:
-    """The engine for bf16 (K3: bf16 x) at C a multiple of 32 in 64..256
-    (K3: 96..256, the int8 stacks' channel floor) with rows of at least 16
-    positions: every flagship stage, at any batch.  Else the tile."""
+    """The engine for bf16 (K3: bf16 x; C8: any output type, its input
+    is int8) at C a multiple of 32 in 64..256 (K3: 96..256, the int8
+    stacks' channel floor; C8: 96, 128 and 256, its instantiations) with
+    rows of at least 16 positions: every flagship stage, at any batch.
+    Else the tile."""
+    if mode == STAGE_C8:
+        return (STAGE_ENGINE if C in (96, 128, 256) and T >= 16
+                else STAGE_TILE)
     if (dtype == torch.bfloat16 and C % 32 == 0
             and STAGE_MIN_C[mode] <= C <= 256 and T >= 16):
         return STAGE_ENGINE
@@ -563,11 +584,12 @@ def stage_plan(mode: int, dtype, B: int, F: int, T: int, C: int,
     assert TF * (TT + 2) * 2 <= STAGE_UNITS * 256
     win = _r128(TF * (TT + 2) * STAGE_PX * 2)
     stage = _r128(3 * NT * STAGE_KB + win)
-    # the epilogue tile: bf16 rows of NT + 8, K3's fp32 rows of NT + 4
-    tile = (STAGE_POS * (NT + 4) * 4 if mode == STAGE_I8
-            else STAGE_POS * (NT + 8) * 2)
+    # the epilogue tile: bf16 rows of NT + 8, K3's fp32 and C8's int32
+    # rows of NT + 4
+    int8 = mode in (STAGE_I8, STAGE_C8)
+    tile = STAGE_POS * (NT + 4) * 4 if int8 else STAGE_POS * (NT + 8) * 2
     ring = max(STAGE_RING * stage, _r128(tile))
-    kc = 2 * STAGE_KC if mode == STAGE_I8 else STAGE_KC
+    kc = 2 * STAGE_KC if int8 else STAGE_KC
     plan = StagePlan(route, mode, B, F, T, C, d, splits,
                      TT.bit_length() - 1, TT, TF, 5 * C // kc, ring, stage,
                      win, ring + 6 * NT * 4, -(-T // TT), -(-F // TF),
@@ -1352,3 +1374,105 @@ def launch_fused_stage_dw(x, a, s, y, g_y, g_mom, d: int,
     fp32."""
     h, gc = operands or launch_stage_dw_operands(x, a, s, y, g_y, g_mom)
     return _dw_gemm("fused_stage_dw", h, gc, (5, 3), (int(d), 1))
+
+
+# ----------------------------------- the unfused int8 path (C8, Q8)
+
+
+def conv_int8_route(B: int, F: int, T: int, C: int, N: int, d: int) -> int:
+    """C8's route: the stage engine's int8 loop for C = N in {96, 128,
+    256} with rows of at least 16 positions (every flagship int8 stage and
+    its input gradient), else the tile (``csrc/conv_int8.cu``)."""
+    if C != N:
+        return STAGE_TILE
+    return stage_route(STAGE_C8, torch.int8, B, F, T, C, d)
+
+
+def launch_conv_int8(q: torch.Tensor, qwt: torch.Tensor,
+                     scale: torch.Tensor, d: int, dtype,
+                     want_acc: bool = False):
+    """C8 on the card: the 'SAME' (5,3) conv at dilation (d,1) of int8 q
+    (B,F,T,C) with the tap-major int8 kernel qwt (15,N,C), rescaled by
+    scale (B,N) fp32 into ``dtype`` (fp32 or bf16).  Returns out (B,F,T,N),
+    or (out, the int32 accumulator) with ``want_acc``.  The route is
+    ``conv_int8_route``'s."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"conv_int8: unsupported output dtype {dtype}")
+    _check(q, "conv_int8 q", torch.int8)
+    B, F, T, C = q.shape
+    N = qwt.shape[1]
+    _check(qwt, "conv_int8 qwt", torch.int8, (15, N, C))
+    _check(scale, "conv_int8 scale", torch.float32, (B, N))
+    route = conv_int8_route(B, F, T, C, N, d)
+    if route == STAGE_ENGINE:
+        plan, meta, n_meta = _stage_plan(STAGE_C8, torch.int8, B, F, T, C, d)
+        wpk = stage_int8_weights(qwt)
+    else:
+        tile = StagePlan(STAGE_TILE, STAGE_C8, B, F, T, C, d).meta()
+        meta, n_meta = (ctypes.c_int * len(tile))(*tile), len(tile)
+        wpk = qwt
+    out = torch.empty((B, F, T, N), dtype=dtype, device=q.device)
+    acc = (torch.empty((B, F, T, N), dtype=torch.int32, device=q.device)
+           if want_acc else None)
+    rc = _entry("conv_int8")(
+        q.data_ptr(), qwt.data_ptr(), wpk.data_ptr(), scale.data_ptr(),
+        out.data_ptr(), None if acc is None else acc.data_ptr(), B, F, T, C,
+        N, int(d), _DTYPES[dtype], meta, n_meta, _stream(q))
+    _status("conv_int8", rc)
+    LAUNCHES["conv_int8"] += 1
+    return (out, acc) if want_acc else out
+
+
+def launch_act_amax(x: torch.Tensor) -> torch.Tensor:
+    """Q8's reduction on the card: the per-item max |x| (B,) fp32 of x
+    (B, ...) in fp32 or bf16."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"act_amax: unsupported dtype {x.dtype}")
+    _check(x, "act_amax x")
+    B = x.shape[0]
+    amax = torch.zeros((B,), dtype=torch.float32, device=x.device)
+    rc = _entry("act_amax")(x.data_ptr(), amax.data_ptr(), B,
+                            x.numel() // max(B, 1), _DTYPES[x.dtype],
+                            _stream(x))
+    _status("act_amax", rc)
+    LAUNCHES["act_amax"] += 1
+    return amax
+
+
+def launch_act_quant(x: torch.Tensor, amax: torch.Tensor):
+    """Q8's quantizer on the card: x (B, ...) fp32 or bf16 at the per-item
+    amax (B,) fp32 -> (q int8 like x, s (B,) fp32), a = max(amax, 1e-20),
+    s = a/127, q = clip(rint(float(x) * (127/a)), +-127) (plain version
+    ``ops/conv_kernels.quant_act_ref``)."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"act_quant: unsupported dtype {x.dtype}")
+    _check(x, "act_quant x")
+    B = x.shape[0]
+    _check(amax, "act_quant amax", torch.float32, (B,))
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    s = torch.empty((B,), dtype=torch.float32, device=x.device)
+    rc = _entry("act_quant")(x.data_ptr(), amax.data_ptr(), q.data_ptr(),
+                             s.data_ptr(), B, x.numel() // max(B, 1),
+                             _DTYPES[x.dtype], _stream(x))
+    _status("act_quant", rc)
+    LAUNCHES["act_quant"] += 1
+    return q, s
+
+
+def launch_act_rescale(acc: torch.Tensor, scale: torch.Tensor,
+                       dtype) -> torch.Tensor:
+    """Q8's rescale on the card: acc (B, ..., N) int32 with scale (B, N)
+    fp32 -> float(acc) * scale[b, n] in ``dtype`` (fp32 or bf16; plain
+    version ``ops/conv_kernels.int8_rescale_ref``)."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"act_rescale: unsupported output dtype {dtype}")
+    _check(acc, "act_rescale acc", torch.int32)
+    B, N = acc.shape[0], acc.shape[-1]
+    _check(scale, "act_rescale scale", torch.float32, (B, N))
+    out = torch.empty(acc.shape, dtype=dtype, device=acc.device)
+    rc = _entry("act_rescale")(acc.data_ptr(), scale.data_ptr(),
+                               out.data_ptr(), B, acc.numel() // max(B, 1),
+                               N, _DTYPES[dtype], _stream(acc))
+    _status("act_rescale", rc)
+    LAUNCHES["act_rescale"] += 1
+    return out

@@ -10,10 +10,20 @@ The (5,3) dilation stack of a ``ResnetBlock`` runs the fused-chain form of
 the JAX ``_fused_dil_chain``: each stage's GroupNorm denominators come from
 the moments the previous stage emitted, and the stage itself is one
 ``fused_stage`` call (kernel K2 on CUDA, ``dil_stage_ref`` on the CPU).  A
-block put in int8 (``int8=True``) runs the JAX ``_fused_dil_chain_int8``
+block put in int8 (``int8=True``, or an ``Int8Config`` whose ``fused``
+width it reaches) runs the JAX ``_fused_dil_chain_int8``
 instead: one ``fused_stage_int8`` per stage (kernel K3), each quantizing its
 conv input at a per-item scale bounded analytically from the previous
 stage's per-channel amax.
+
+The unfused int8 path (an ``Int8Config`` given to ``set_int8``, as the
+network's ``set_precision`` gives it): ``Conv2d`` dispatches as the JAX
+``conv2d_same`` does, its (5,3) convs of at least ``minc`` channels
+through ``conv_int8`` (C8) and, under ``ops="all"``, its 1x1s through
+``dot1x1_int8``; a dilation stack in int8 that is not a fused chain runs
+the JAX unfused loop: GroupNorm, * (gamma + 1), the degree-6 gelu, then
+``conv_int8`` with the hint BOUND_SAFETY * max_c(amax_c(x) * |a_c|) under
+the bound scales (none under amax), then the gated residual.
 """
 
 from __future__ import annotations
@@ -27,11 +37,18 @@ from torch import nn
 from babe_tpu_torch.kernels import tap_major
 from babe_tpu_torch.ops.pallas_conv import dilated_conv_nhwc
 from babe_tpu_torch.ops.conv_kernels import (
+    INT8_MINC,
+    Int8Config,
+    QuantKernel,
+    _flip_io,
     conv1x1,
     conv5x3_dilated,
+    conv_int8,
+    dot1x1_int8,
     fused_stage,
     fused_stage_int8,
     gelu_exact,
+    gelu_for_int8,
     quant_weight_per_cout,
 )
 
@@ -79,6 +96,22 @@ class Linear(nn.Module):
         return y
 
 
+def _stamped(cache: dict, key, ws, build):
+    """``build()`` memoised in ``cache[key]`` for the weights ``ws`` as they
+    are now: rebuilt when one of them was replaced or changed through its
+    parameter (``load_state_dict``, an in-place edit under
+    ``torch.no_grad()``, a move to another device), which changes its
+    storage, version counter or device.  An edit through ``.data`` changes
+    none of these: the owner's ``set_int8`` (or the network's
+    ``set_precision``) empties the cache after one."""
+    stamp = tuple((w.data_ptr(), w._version, w.device) for w in ws)
+    hit = cache.get(key)
+    if hit is None or hit[0] != stamp:
+        with torch.no_grad():
+            cache[key] = hit = (stamp, build())
+    return hit[1]
+
+
 class _ConvParams(nn.Module):
     """Holds the HWIO ``kernel`` (and optional ``bias``) of a Conv2d; the
     JAX tree nests them one level down, under ``conv``."""
@@ -92,10 +125,14 @@ class _ConvParams(nn.Module):
 
 class Conv2d(nn.Module):
     """'SAME' 2-D conv on (B, F, T, C), odd kernel (kf, kt), dilation
-    (df, dt), dispatched as the JAX ``conv2d_same`` does: (1,1) kernels are
-    matmuls (``conv1x1``); (5,3) kernels with dilation (d,1) go through
-    ``conv5x3_dilated`` (kernel K1 on CUDA); every other kernel through
-    ``dilated_conv_nhwc`` (kernel K4 on CUDA)."""
+    (df, dt), dispatched as the JAX ``conv2d_same`` does: under an int8
+    config that makes it active (``set_int8``), (5,3) kernels with dilation
+    (d,1) run ``conv_int8`` (C8; with the caller's ``scale_hint`` its
+    hinted form) and, under ``ops="all"``, (1,1) kernels ``dot1x1_int8``;
+    else (1,1) kernels are matmuls (``conv1x1``); (5,3) kernels with
+    dilation (d,1) go through ``conv5x3_dilated`` (kernel K1 on CUDA);
+    every other kernel through ``dilated_conv_nhwc`` (kernel K4 on
+    CUDA)."""
 
     def __init__(self, in_features: int, features: int, kernel=(1, 1),
                  dilation=(1, 1), use_bias: bool = False,
@@ -111,6 +148,7 @@ class Conv2d(nn.Module):
         self.init_weight = init_weight
         self.conv = _ConvParams((*kernel, in_features, features), features,
                                 use_bias)
+        self.set_int8(None)
 
     def reset_parameters(self, gen=None) -> None:
         _kaiming_uniform_(self.conv.kernel, self.init_weight, gen)
@@ -121,9 +159,31 @@ class Conv2d(nn.Module):
     def weight(self) -> torch.Tensor:
         return self.conv.kernel
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def set_int8(self, cfg: Int8Config | None) -> None:
+        """Run in int8 where ``cfg`` makes this conv active (None: never).
+        Drops the quantized kernels, so the next int8 evaluation quantizes
+        the weights as they are now."""
+        self.i8 = cfg
+        self._qcache = {}
+
+    def int8_active(self) -> bool:
+        cin, cout = self.conv.kernel.shape[2:]
+        return self.i8 is not None and self.i8.active(
+            cin, cout, self.kernel_size == (1, 1))
+
+    def _quantized(self, k: torch.Tensor, flipped: bool = False):
+        """The kernel k (the weight in the activations' dtype) quantized
+        per output channel, or its flipped, io-swapped form (the int8
+        input gradient's); cached per dtype (``_stamped``)."""
+        return _stamped(self._qcache, (k.dtype, flipped), [self.conv.kernel],
+                        lambda: QuantKernel.of(_flip_io(k.detach()) if flipped
+                                               else k.detach()))
+
+    def forward(self, x: torch.Tensor, scale_hint=None) -> torch.Tensor:
         k = self.conv.kernel.to(x.dtype)
-        if self.kernel_size == (1, 1):
+        if self.int8_active():
+            y = self._forward_int8(x, k, scale_hint)
+        elif self.kernel_size == (1, 1):
             y = conv1x1(x, k)
         elif self.kernel_size == (5, 3) and self.dilation[1] == 1:
             y = conv5x3_dilated(x, k, self.dilation[0])
@@ -132,6 +192,18 @@ class Conv2d(nn.Module):
         if self.conv.bias is not None:
             y = y + self.conv.bias.to(y.dtype)
         return y
+
+    def _forward_int8(self, x, k, scale_hint):
+        if self.kernel_size == (1, 1):
+            return dot1x1_int8(x, k, self._quantized(k))
+        if self.kernel_size != (5, 3) or self.dilation[1] != 1:
+            raise NotImplementedError(
+                f"Conv2d: an int8 conv with kernel {self.kernel_size} and "
+                f"dilation {self.dilation} is not ported (the network's "
+                f"int8 convs are (5,3) at dilation (d,1) and 1x1)")
+        return conv_int8(x, k, self.dilation[0], bound=scale_hint,
+                         bwd=self.i8.bwd, qw=self._quantized(k),
+                         qwT=lambda: self._quantized(k, flipped=True))
 
 
 def _gn_moments(x: torch.Tensor, g: int):
@@ -164,6 +236,19 @@ class BiasFreeGroupNorm(nn.Module):
         scale = (self.gamma[None, :].float()
                  / torch.repeat_interleave(std + self.eps, cg, dim=-1))
         return x * scale.to(x.dtype)[:, None, None, :]
+
+    def bound_factor(self, x: torch.Tensor, gamma: torch.Tensor):
+        """max_c amax_c(x) / denom_c * |gain_c * (gamma_c + 1)| per item
+        (B,) fp32: with |gelu(v)| <= |v|, a bound on max |gelu(norm(x) *
+        (gamma + 1))| (the JAX unfused int8 loop's hint before its
+        inflation)."""
+        cg = x.shape[-1] // self.num_groups
+        _, std = _gn_moments(x, self.num_groups)
+        denom = torch.repeat_interleave(std + self.eps, cg, dim=-1)
+        amax_c = x.float().abs().amax((1, 2))
+        a_abs = (self.gamma[None, :].float()
+                 * (gamma.float() + 1.0)).abs() / denom
+        return (amax_c * a_abs).amax(-1)
 
 
 class RFF_MLP_Block(nn.Module):
@@ -256,7 +341,10 @@ class ResnetBlock(nn.Module):
             self.proj_out = Conv2d(N, dim_out, (1, 1))
         if dim != dim_out:
             self.res_conv = Conv2d(dim, dim_out, (1, 1))
-        self.set_int8(int8)
+        self.set_int8(Int8Config() if int8 else None)
+        if int8 and not self.int8:
+            raise ValueError("only (5,3) blocks with norm of at least "
+                             f"{INT8_MINC} channels have an int8 chain")
 
     @property
     def fused(self) -> bool:
@@ -264,14 +352,27 @@ class ResnetBlock(nn.Module):
         return (self.kernel_size == (5, 3) and self.use_norm
                 and self.num_dils > 0)
 
-    def set_int8(self, on: bool) -> None:
-        """Run the dilation stack in int8 (K3) or not (K2).  Only a fused
-        chain has an int8 form.  Drops the quantized kernels, so the next
-        int8 evaluation quantizes the weights as they are now."""
-        if on and not self.fused:
-            raise ValueError("only (5,3) blocks with norm have an int8 chain")
-        self.int8 = bool(on)
-        self._qcache = None
+    def set_int8(self, cfg: Int8Config | None) -> None:
+        """Run in int8 as ``cfg`` says (None: never): the dilation stack as
+        the fused int8 chain (K3) where the block is a fused chain at least
+        ``cfg.fused`` wide, and ``cfg`` handed to the block's convs.  Drops
+        the quantized kernels, so the next int8 evaluation quantizes the
+        weights as they are now."""
+        self.i8 = cfg
+        self.int8 = (cfg is not None and cfg.fused is not None
+                     and self.fused and self.N >= cfg.fused)
+        self._qcache = {}
+        for m in self.modules():
+            if isinstance(m, Conv2d):
+                m.set_int8(cfg)
+
+    @property
+    def unfused_int8(self) -> bool:
+        """Whether the dilation stack runs the JAX unfused loop with int8
+        convs (an int8 config active at this width, and no fused chain)."""
+        return (self.i8 is not None and not self.int8
+                and self.kernel_size != (1, 1)
+                and self.i8.active(self.N, self.N))
 
     def _sub(self, name: str, i: int) -> nn.Module:
         return getattr(self, f"{name}_{i}")
@@ -280,7 +381,9 @@ class ResnetBlock(nn.Module):
         x = x_in
         if self.dim != self.N:
             x = self.proj_in(x)
-        if self.fused:
+        if self.unfused_int8:
+            x = self._unfused_dil_int8(x, sigma_emb)
+        elif self.fused:
             x = self._fused_dil_chain(x, sigma_emb)
         else:
             for i in range(self.num_dils):
@@ -298,23 +401,37 @@ class ResnetBlock(nn.Module):
         res = x_in if self.dim == self.dim_out else self.res_conv(x_in)
         return (x + res) * INV_SQRT2
 
+    def _unfused_dil_int8(self, x: torch.Tensor, sigma_emb: torch.Tensor):
+        """The dilation stack as the JAX unfused loop in int8 (its default,
+        non-``BABE_STAGE_REMAT`` branch): per stage GroupNorm, * (gamma +
+        1), the degree-6 gelu, the int8 conv (hinted under the bound
+        scales), the gated residual."""
+        hinted = self.use_norm and self.i8.scale == "bound"
+        for i in range(self.num_dils):
+            x0 = h = x
+            gamma = self._sub("affine", i)(sigma_emb)
+            scale = self._sub("gate", i)(sigma_emb)
+            hint = None
+            if self.use_norm:
+                gn = self._sub("norm", i)
+                h = gn(h)
+            if hinted:
+                hint = BOUND_SAFETY * gn.bound_factor(x, gamma)
+            h = gelu_for_int8(h * (gamma[:, None, None, :] + 1.0))
+            h = self._sub("H", i)(h, scale_hint=hint)
+            x = (x0 + h * scale[:, None, None, :]) * INV_SQRT2
+        return x
+
     def _quantized(self):
         """The stages' kernels in int8, per output channel: (qw (nd,15,N,N)
-        tap-major, sw (nd,N)).  Quantized once per set of weights: the
-        cache is rebuilt when a kernel was replaced or changed through its
-        parameter (``load_state_dict``, an in-place edit under
-        ``torch.no_grad()``, a move to another device), which changes its
-        storage or bumps its version counter, and after ``set_int8``.  An
-        edit through ``.data`` bumps neither: call ``set_int8`` (or the
-        network's ``set_precision``) after one."""
+        tap-major, sw (nd,N)), quantized once per set of weights
+        (``_stamped``)."""
         ws = [self._sub("H", i).weight for i in range(self.num_dils)]
-        stamp = tuple((w.data_ptr(), w._version) for w in ws)
-        if self._qcache is None or self._qcache[0] != stamp:
-            with torch.no_grad():
-                q, s = zip(*(quant_weight_per_cout(w) for w in ws))
-                self._qcache = (stamp, torch.stack([tap_major(v) for v in q]),
-                                torch.stack(s))
-        return self._qcache[1:]
+
+        def build():
+            q, s = zip(*(quant_weight_per_cout(w) for w in ws))
+            return torch.stack([tap_major(v) for v in q]), torch.stack(s)
+        return _stamped(self._qcache, "stages", ws, build)
 
     def _fused_dil_chain(self, x: torch.Tensor, sigma_emb: torch.Tensor):
         """The dilation stack as fused stages.  Stage i's GroupNorm

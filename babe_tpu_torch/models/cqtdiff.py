@@ -16,19 +16,27 @@ runs through ``torch.utils.checkpoint`` (non-reentrant), so only block
 boundaries are kept and each block's forward runs again in the backward.
 Training at the flagship config uses it; serving does not.
 
-``precision`` is an attribute of the network: ``"int8"`` puts every fused
-(5,3) dilation stack with at least ``INT8_MINC`` channels (96, the JAX
-package's default; the environment's ``BABE_INT8_MINC``, the JAX package's
-knob, overrides it when the precision is set) in int8, the configuration ``BABE_PRECISION=int8
-BABE_INT8_FUSED=1`` of the JAX package with its analytic-bound scales;
-everything else (the narrower stacks, the pyramid convs, every 1x1, the
-CQT) keeps the compute dtype.  ``None`` and ``"bf16"`` run every stack in
-the compute dtype.
+``precision`` is an attribute of the network: ``"int8"`` reads the JAX
+package's int8 knobs from the environment when it is set
+(``ops.conv_kernels.Int8Config.from_env``: ``BABE_INT8_SCALE``,
+``BABE_INT8_MINC``, ``BABE_INT8_OPS``, ``BABE_INT8_FUSED``,
+``BABE_INT8_BWD``) and holds them on the network's modules.  By default
+every (5,3) dilation stack with at least 96 channels runs the fused int8
+chain (kernel K3) with analytic-bound scales: the JAX package's
+``BABE_PRECISION=int8 BABE_INT8_FUSED=1`` on its TPU.  ``BABE_INT8_FUSED=0``
+runs the JAX unfused loop instead, one int8 conv (C8) per stage, and with
+``BABE_INT8_BWD=1`` the guidance gradient's input cotangent in int8 too:
+``BABE_INT8_FUSED=0 BABE_INT8_BWD=1`` is the JAX API's
+``precision="int8"``.  ``BABE_INT8_SCALE=amax`` quantizes every int8 conv
+input at its dynamic per-item amax (no fused chain), and
+``BABE_INT8_OPS=all`` puts the 1x1s of at least ``minc`` channels in int8
+too.  Everything else (the narrower stacks, the pyramid convs, the CQT)
+keeps the compute dtype.  ``None`` and ``"bf16"`` run every conv in the
+compute dtype.
 """
 
 from __future__ import annotations
 
-import os
 from typing import Sequence
 
 import torch
@@ -44,7 +52,7 @@ from babe_tpu_torch.models.blocks import (
     RFF_MLP_Block,
     resample_time,
 )
-from babe_tpu_torch.ops.conv_kernels import INT8_MINC
+from babe_tpu_torch.ops.conv_kernels import Int8Config
 from babe_tpu_torch.ops.cqt import CQT, get_cqt
 
 PRECISIONS = (None, "bf16", "int8")
@@ -131,10 +139,11 @@ class CQTDiffPlusNet(nn.Module):
             raise ValueError(f"precision must be 'bf16', 'int8' or None, "
                              f"got {precision!r}")
         self.precision = precision
-        minc = int(os.environ.get("BABE_INT8_MINC", INT8_MINC))
+        cfg = Int8Config.from_env() if precision == "int8" else None
+        self.int8_config = cfg
         for m in self.modules():
-            if isinstance(m, ResnetBlock) and m.fused:
-                m.set_int8(precision == "int8" and m.N >= minc)
+            if isinstance(m, (ResnetBlock, Conv2d)):
+                m.set_int8(cfg)
 
     def reset_parameters(self, gen: torch.Generator | None = None) -> None:
         """Seeded EDM init of every weight and RFF buffer (on the CPU

@@ -321,25 +321,34 @@ class MultiStageDenoiser:
 def setup_denoiser(args, device="cuda") -> MultiStageDenoiser:
     """Build the denoiser of ``args.tester.denoiser`` and load its
     checkpoint: a ``.ckpt`` pickle holding ``{"params": tree}`` in the JAX
-    package's layout.  A ``.pt`` checkpoint raises (ROADMAP.md section 1,
-    item 6).  A path that does not exist prints a warning and keeps the
-    seeded init (seed 0), as the JAX package keeps its own seeded init."""
+    package's layout, or a reference ``.pt`` torch checkpoint (its
+    ``network`` weights first, converted to that layout and filled
+    non-strictly: an entry the checkpoint lacks keeps the seeded init, as
+    in the JAX package).  A path that does not exist prints a warning and
+    keeps the seeded init (seed 0), as the JAX package keeps its own
+    seeded init."""
     from babe_tpu_torch.testers.tester import read_checkpoint
-    from babe_tpu_torch.utils.weights import load_denoiser_flax
+    from babe_tpu_torch.utils.torch_ckpt import (fill_variables,
+                                                 load_torch_checkpoint)
+    from babe_tpu_torch.utils.weights import (denoiser_to_flax,
+                                              load_denoiser_flax)
 
     dcfg = args.tester.denoiser
     model = MultiStageDenoiser.from_config(dcfg, device=device)
     path = str(dcfg.get("checkpoint_path", dcfg.get("checkpoint", "")))
     if path and os.path.exists(path):
         if path.endswith(".pt"):
-            raise NotImplementedError(
-                "loading a reference .pt denoiser checkpoint is not ported "
-                "yet (ROADMAP.md section 1, item 6); use a .ckpt pickle")
-        payload = read_checkpoint(path)
-        if "params" not in payload:
-            raise ValueError(f"denoiser checkpoint {path!r} holds no "
-                             f"'params' entry")
-        load_denoiser_flax(model.net, payload["params"])
+            params = fill_variables(
+                {"params": denoiser_to_flax(model.net)},
+                load_torch_checkpoint(path, prefer="network"),
+                strict=False)["params"]
+        else:
+            payload = read_checkpoint(path)
+            if "params" not in payload:
+                raise ValueError(f"denoiser checkpoint {path!r} holds no "
+                                 f"'params' entry")
+            params = payload["params"]
+        load_denoiser_flax(model.net, params)
         model.net.to(model.device)
     else:
         print(f"warning: denoiser checkpoint {path!r} not found; using "

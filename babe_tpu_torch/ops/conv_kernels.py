@@ -34,15 +34,44 @@ Counterpart of ``babe_tpu/ops/conv_kernels.py``.  Layout is channels-last
     ``dil_stage_int8_ref``.  The backward is straight-through:
     the vjp of the exact stage (K2 recomputed, then K2's backward) at the
     int8 forward's inputs; the bound gets no gradient.  Its weight gradient
-    is not ported (int8 training waits for the unfused int8 convs), so a
-    weight that requires grad raises.
+    is the exact stage's (``fused_stage_dw``), as the JAX ``_fused_i8_bwd``
+    gives it: quantization-aware training keeps the int8 forward.
+  * ``conv_int8``, ``conv_int8_hinted`` and ``dot1x1_int8``: the JAX
+    package's unfused int8 convs.  The activation is quantized per item
+    (``quant_act_per_item``: a dynamic amax; ``quant_act_with_scale``: an
+    analytic bound known before the activation), the kernel per output
+    channel; the int8 products accumulate in int32 and are rescaled by
+    s_x[b] * s_w[n] into the input's dtype.  On CUDA the quantizers are
+    Q8 (``csrc/quant_int8.cu``: ``act_amax``, ``act_quant``), the (5,3)
+    conv C8 (``csrc/conv_int8.cu``, ``conv_int8``: the stage engine's int8
+    loop or a tile, with the rescale in its epilogue) and the 1x1 product
+    ``torch._int_mm`` (P1's GEMM at the shapes it does not take) rescaled
+    by Q8's ``act_rescale``; on the CPU their
+    plain versions (``conv_int8_acc_ref``: the conv in float64 on the int
+    values, exact).  The backward is straight-through from the saved
+    int8 activation (never x, except the 1x1's plain vjp): dw = g (x)
+    dequant(qx) (``conv_dw``), dx the exact transpose, or with the int8
+    backward on (``BABE_INT8_BWD=1``) the int8 conv of g with the flipped,
+    io-swapped kernel on per-item scales; ``exact_backward()`` wins over
+    that knob.
+
+The knobs are the JAX package's environment variables, read into an
+``Int8Config`` when a network's precision is set (``Int8Config.from_env``):
+``BABE_INT8_SCALE`` (bound/amax), ``BABE_INT8_MINC`` (96 under bound, 128
+under amax), ``BABE_INT8_OPS`` (conv/all), ``BABE_INT8_FUSED`` (the fused
+K3 chain, the port's default "1"; "0" the unfused convs) and
+``BABE_INT8_BWD``.  ``BABE_INT8_FUSED=0 BABE_INT8_BWD=1`` is the JAX API's
+``precision="int8"``.
 
 There is no fallback: a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import math
+import os
 
 import torch
 
@@ -347,9 +376,9 @@ def fused_stage(x, a, s, w, d: int):
 
 # ------------------------------------------------------------------- K3
 
-# the ResnetBlock dilation stacks with at least this many channels run the
-# int8 stage under precision="int8"; narrower ones stay on K2 (the JAX
-# package's default BABE_INT8_MINC under its analytic-bound scales)
+# the narrowest conv that runs int8 under precision="int8" by default (the
+# JAX package's default BABE_INT8_MINC under its analytic-bound scales; 128
+# under dynamic amax scales)
 INT8_MINC = 96
 SQRT2_INV = 0.7071067811865475
 
@@ -375,6 +404,28 @@ def _gelu_cheap_impl(x: torch.Tensor) -> torch.Tensor:
     xf = x.float()
     z = torch.clamp(xf * 0.7071067811865475, -3.2, 3.2)
     return (0.5 * xf * (1.0 + _erf_poly6(z))).to(x.dtype)
+
+
+class _GeluInt8(torch.autograd.Function):
+    """The degree-6 gelu with the exact analytic derivative (the
+    degree-10 erf's) as its backward (JAX ``_gelu_for_int8``)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _gelu_cheap_impl(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return (g.float() * _gelu_deriv(x)).to(g.dtype)
+
+
+def gelu_for_int8(x: torch.Tensor) -> torch.Tensor:
+    """gelu whose output is about to be quantized to int8: the degree-6 erf
+    forward (its error under the quantization half-step), the exact
+    derivative backward."""
+    return _GeluInt8.apply(x)
 
 
 def _full127(t: torch.Tensor) -> torch.Tensor:
@@ -470,21 +521,32 @@ class _FusedStageInt8(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_y, g_mom):
         # straight-through: the vjp of the exact stage at the same inputs,
-        # its forward recomputed for the exact y and conv output
+        # its forward recomputed for the exact y and conv output; the
+        # weight's gradient is the exact stage's too (JAX _fused_i8_bwd)
         x, a, s, w = ctx.saved_tensors
         d = ctx.d
+        need_dw = ctx.needs_input_grad[4]
         g_mom = g_mom[:2].float()
         if x.is_cuda:
             x, a, s = x.contiguous(), a.contiguous(), s.contiguous()
             y, _, c = _k.launch_fused_stage(x, a, s, w.contiguous(), d,
                                             want_conv=True)
+            args = (x, a, s, y, g_y.to(x.dtype).contiguous(),
+                    g_mom.contiguous())
+            ops = _k.launch_stage_dw_operands(*args) if need_dw else None
             dx, ds, da = _k.launch_fused_stage_bwd(
-                g_y.to(x.dtype).contiguous(), g_mom.contiguous(), y, x, c,
-                a, s, w.contiguous(), d)
+                args[4], args[5], y, x, c, a, s, w.contiguous(), d,
+                gc=None if ops is None else ops[1])
+            dw = (_k.launch_fused_stage_dw(*args, d, operands=ops)
+                  if need_dw else None)
         else:
             y, _, c = _dil_stage_parts(x, a, s, w, d)
             dx, da, ds = dil_stage_bwd_ref(x, a, s, w, y, c, g_y, g_mom, d)
-        return dx, da, ds, None, None, None, None, None
+            dw = (dil_stage_dw_ref(x, a, s, y, g_y, g_mom, d)
+                  if need_dw else None)
+        if dw is not None:
+            dw = dw.to(w.dtype)
+        return dx, da, ds, None, dw, None, None, None
 
 
 def fused_stage_int8(x, a, s, bound, w, qwt, sw, d: int):
@@ -498,8 +560,283 @@ def fused_stage_int8(x, a, s, bound, w, qwt, sw, d: int):
     assert tuple(w.shape) == (5, 3, C, C), (tuple(w.shape), C)
     assert tuple(qwt.shape) == (15, C, C) and qwt.dtype == torch.int8
     assert tuple(a.shape) == (B, C) and tuple(s.shape) == (B, C)
-    if w.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "fused_stage_int8: the weight gradient is not implemented "
-            "(freeze the parameters with requires_grad_(False))")
     return _FusedStageInt8.apply(x, a, s, bound, w, qwt, sw, int(d))
+
+
+# ------------------------------------- the unfused int8 convs (C8, Q8)
+
+INT8_SCALES = ("bound", "amax")
+INT8_OPS = ("conv", "all")
+
+
+@dataclasses.dataclass(frozen=True)
+class Int8Config:
+    """The JAX package's int8 knobs, as one network holds them.
+
+    scale: "bound" (an analytic per-item bound on the dilation stages'
+        conv inputs, from the GroupNorm statistics; dynamic amax where no
+        bound is given) or "amax" (dynamic per-item amax everywhere);
+    minc: the narrowest conv (min of its in and out channels) that runs
+        in int8;
+    ops: "conv" (the non-1x1 convs) or "all" (the 1x1s too);
+    fused: the narrowest dilation stack that runs as the fused int8 chain
+        (K3), or None for none; only under the bound scales;
+    bwd: the guidance gradient's input cotangent through the int8 conv
+        (inside ``exact_backward()`` the exact transpose wins)."""
+    scale: str = "bound"
+    minc: int = INT8_MINC
+    ops: str = "conv"
+    fused: int | None = INT8_MINC
+    bwd: bool = False
+
+    @classmethod
+    def from_env(cls, env=None) -> "Int8Config":
+        """The knobs from ``env`` (the process environment by default),
+        with the JAX package's defaults but one: ``BABE_INT8_FUSED``
+        defaults to "1" (the fused chain) where the JAX package's default
+        is "0"."""
+        env = os.environ if env is None else env
+        scale = env.get("BABE_INT8_SCALE", "bound")
+        ops = env.get("BABE_INT8_OPS", "conv")
+        if scale not in INT8_SCALES or ops not in INT8_OPS:
+            raise ValueError(f"BABE_INT8_SCALE={scale!r} (one of "
+                             f"{INT8_SCALES}), BABE_INT8_OPS={ops!r} (one "
+                             f"of {INT8_OPS})")
+        minc = int(env.get("BABE_INT8_MINC",
+                           INT8_MINC if scale == "bound" else 128))
+        spec = env.get("BABE_INT8_FUSED", "1")
+        if spec in ("0", "", "off") or scale != "bound":
+            fused = None
+        else:
+            fused = minc if spec in ("1", "on") else int(spec)
+        return cls(scale, minc, ops, fused,
+                   env.get("BABE_INT8_BWD", "0") == "1")
+
+    def active(self, cin: int, cout: int, is_1x1: bool = False) -> bool:
+        """Whether a conv of these widths runs in int8 (JAX
+        ``_int8_active``)."""
+        if min(cin, cout) < self.minc:
+            return False
+        return (not is_1x1) or self.ops == "all"
+
+
+_EXACT_BWD = False
+
+
+@contextlib.contextmanager
+def exact_backward():
+    """The exact conv transpose for every int8 conv's input gradient
+    computed inside this context, whatever the networks' ``bwd`` knob (the
+    trainer's steps run in it)."""
+    global _EXACT_BWD
+    prev, _EXACT_BWD = _EXACT_BWD, True
+    try:
+        yield
+    finally:
+        _EXACT_BWD = prev
+
+
+def quant_act_ref(x: torch.Tensor, amax: torch.Tensor):
+    """Q8's quantizer, plain version (any device): (B, ...) -> (int8 q,
+    fp32 scale (B,)) at the per-item amax (B,): a = max(amax, 1e-20), s =
+    a/127, q = clip(round(float(x) * (127/a)), +-127), round half to
+    even (JAX ``_quant_act_with_scale``)."""
+    a = amax.float().clamp(min=1e-20)
+    c = _full127(a)
+    iv = (c / a).view((-1,) + (1,) * (x.ndim - 1))
+    return quant_i8(x.float(), iv), a / c
+
+
+def quant_act_with_scale(x: torch.Tensor, amax: torch.Tensor):
+    """``quant_act_ref`` at a per-item amax known before x (a bound): on
+    CUDA Q8's ``act_quant``."""
+    if x.is_cuda:
+        return _k.launch_act_quant(x.contiguous(),
+                                   amax.float().contiguous())
+    return quant_act_ref(x, amax)
+
+
+def quant_act_per_item(x: torch.Tensor):
+    """(B, ...) -> (int8 q, fp32 scale (B,)) at the per-item dynamic amax
+    over every other axis (JAX ``_quant_act_per_item``).  On CUDA Q8's
+    ``act_amax`` then ``act_quant``."""
+    if x.is_cuda:
+        x = x.contiguous()
+        return _k.launch_act_quant(x, _k.launch_act_amax(x))
+    amax = x.float().abs().amax(dim=tuple(range(1, x.ndim)))
+    return quant_act_with_scale(x, amax)
+
+
+def conv_int8_acc_ref(q: torch.Tensor, qw: torch.Tensor,
+                      dilation=(1, 1)) -> torch.Tensor:
+    """C8's plain accumulator: the 'SAME' conv of int8 q (B,F,T,C) with
+    the int8 HWIO kernel qw (KF,KT,C,N) at ``dilation``, in float64 on the
+    int values (exact: |acc| <= KF*KT*C*127^2 < 2^53), as int32."""
+    kf, kt = int(qw.shape[0]), int(qw.shape[1])
+    df, dt = (int(v) for v in dilation)
+    out = torch.nn.functional.conv2d(
+        q.permute(0, 3, 1, 2).double(), qw.permute(3, 2, 0, 1).double(),
+        padding=((kf - 1) // 2 * df, (kt - 1) // 2 * dt), dilation=(df, dt))
+    return out.permute(0, 2, 3, 1).round().to(torch.int32)
+
+
+def int8_rescale_ref(acc: torch.Tensor, sx: torch.Tensor, sw: torch.Tensor,
+                     dtype) -> torch.Tensor:
+    """out = float(acc) * (s_x[b] * s_w[n]) in ``dtype`` (the scale product
+    first, in fp32, as the JAX package forms it)."""
+    scale = sx.float().view((-1,) + (1,) * (acc.ndim - 1)) * sw.float()
+    return (acc.float() * scale).to(dtype)
+
+
+def int8_scale(sx: torch.Tensor, sw: torch.Tensor) -> torch.Tensor:
+    """The (B, N) fp32 rescale s_x[b] * s_w[n] of C8's epilogue."""
+    return (sx.float()[:, None] * sw.float()[None, :]).contiguous()
+
+
+def _conv_int8_q(qx, sx, qw, qwt, sw, d: int, dtype) -> torch.Tensor:
+    """The int8 (5,3) conv at dilation (d,1) of quantized qx with its
+    rescale, in ``dtype``: C8 on CUDA (tap-major kernel qwt), else the
+    plain accumulator and rescale (HWIO kernel qw)."""
+    if qx.is_cuda:
+        return _k.launch_conv_int8(qx, qwt, int8_scale(sx, sw), d, dtype)
+    return int8_rescale_ref(conv_int8_acc_ref(qx, qw, (d, 1)), sx, sw,
+                            dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantKernel:
+    """A conv kernel quantized per output channel: HWIO ``q`` (the plain
+    version's), tap-major ``qt`` (C8's; (N, K) for a 1x1) and the scales
+    ``s``."""
+    q: torch.Tensor
+    qt: torch.Tensor | None
+    s: torch.Tensor
+
+    @classmethod
+    def of(cls, w: torch.Tensor) -> "QuantKernel":
+        with torch.no_grad():
+            q, s = quant_weight_per_cout(w)
+        qt = (_k.tap_major(q) if tuple(w.shape[:2]) != (1, 1)
+              else q[0, 0].t().contiguous())
+        return cls(q, qt, s)
+
+
+def _int8_dx(g, w, d: int, qwT: QuantKernel | None) -> torch.Tensor:
+    """The input gradient of a (5,3) conv with kernel w at dilation (d,1):
+    with ``qwT`` (the quantized flipped, io-swapped kernel) the int8 conv
+    of g on per-item dynamic scales, else the exact transpose (K1)."""
+    if qwT is None:
+        return _conv_any(g, w, d, transposed=True)
+    qg, sg = quant_act_per_item(g)
+    return _conv_int8_q(qg, sg, qwT.q, qwT.qt, qwT.s, d, g.dtype)
+
+
+class _ConvInt8(torch.autograd.Function):
+    """conv_int8 / conv_int8_hinted: residuals (qx, sx, w[, bound]), never
+    x; straight-through backward (JAX ``_int8_bwd_from_q``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, bound, qw: QuantKernel, d, qwT):
+        if bound is None:
+            qx, sx = quant_act_per_item(x)
+        else:
+            qx, sx = quant_act_with_scale(x, bound)
+        out = _conv_int8_q(qx, sx, qw.q, qw.qt, qw.s, d, x.dtype)
+        ctx.save_for_backward(qx, sx, w)
+        ctx.d, ctx.qwT = d, qwT
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        qx, sx, w = ctx.saved_tensors
+        d = ctx.d
+        g = g.to(w.dtype)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            qwT = None if _EXACT_BWD else ctx.qwT
+            dx = _int8_dx(g, w, d, qwT() if callable(qwT) else qwT)
+        if ctx.needs_input_grad[1]:
+            # dequant(qx): the true input of the quantized forward
+            xhat = (qx.float() * sx.view(-1, 1, 1, 1)).to(g.dtype)
+            dw = _conv_dw_any(xhat, g, (5, 3), (d, 1)).to(w.dtype)
+        return dx, dw, None, None, None, None
+
+
+def conv_int8(x, w, d: int, bound=None, bwd: bool = False,
+              qw: QuantKernel | None = None, qwT=None):
+    """'SAME' NHWC (5,3) conv at dilation (d,1) in int8 (JAX ``conv_int8``;
+    with ``bound`` (B,) fp32, an upper bound on max|x| per item, JAX
+    ``conv_int8_hinted``).  Output in x's dtype; the bound gets no
+    gradient.  ``bwd``: the input gradient is the int8 conv of g with the
+    flipped, io-swapped kernel (``exact_backward()`` wins), else the exact
+    transpose.  ``qw`` and ``qwT``: the quantized kernel and the quantized
+    flipped, io-swapped kernel (or a callable returning it), made here
+    from w when not given."""
+    B, F, T, C = x.shape
+    assert tuple(w.shape[:3]) == (5, 3, C), (tuple(w.shape), C)
+    w = w.to(x.dtype)
+    if qw is None:
+        qw = QuantKernel.of(w)
+    if bwd and qwT is None:
+        qwT = lambda: QuantKernel.of(_flip_io(w.detach()))  # noqa: E731
+    if bound is not None:
+        bound = bound.detach()
+    return _ConvInt8.apply(x, w, bound, qw, int(d), qwT if bwd else None)
+
+
+def _int_mm(qx2: torch.Tensor, qwt: torch.Tensor) -> torch.Tensor:
+    """int8 (M, K) @ (K, N) -> int32 (qwt is the (N, K) kernel): on CUDA
+    the library's int8 product (``torch._int_mm``, read column-major)
+    where it takes the shape (M > 16, K and N multiples of 8), else P1's
+    GEMM (``launch_probe_gemm``, K a multiple of 32); in float64 (exact)
+    on the CPU."""
+    if qx2.is_cuda:
+        M, K = qx2.shape
+        N = qwt.shape[0]
+        if M > 16 and K % 8 == 0 and N % 8 == 0:
+            return torch._int_mm(qx2, qwt.t())
+        if K % 32:
+            raise ValueError(f"dot1x1_int8: (M, K, N) = ({M}, {K}, {N}) is "
+                             f"a shape neither torch._int_mm (M > 16, K and "
+                             f"N multiples of 8) nor P1 (K a multiple of "
+                             f"32) takes")
+        return _k.launch_probe_gemm(qx2, qwt, reps=1)
+    return (qx2.double() @ qwt.t().double()).round().to(torch.int32)
+
+
+class _Dot1x1Int8(torch.autograd.Function):
+    """dot1x1_int8: an int8 1x1 forward; the backward is the plain 1x1
+    vjp at the saved x and w (JAX ``_dot1x1_int8_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, qw: QuantKernel):
+        B, F, T, C = x.shape
+        N = w.shape[3]
+        qx, sx = quant_act_per_item(x)
+        acc = _int_mm(qx.reshape(-1, C), qw.qt).view(B, F, T, N)
+        ctx.save_for_backward(x, w)
+        if acc.is_cuda:
+            return _k.launch_act_rescale(acc, int8_scale(sx, qw.s), x.dtype)
+        return int8_rescale_ref(acc, sx, qw.s, x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        w2 = w[0, 0].to(g.dtype)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.matmul(g, w2.t())
+        if ctx.needs_input_grad[1]:
+            C, N = w2.shape
+            dw = (x.reshape(-1, C).t() @ g.reshape(-1, N))[None, None]
+            dw = dw.to(w.dtype)
+        return dx, dw, None
+
+
+def dot1x1_int8(x, w, qw: QuantKernel | None = None):
+    """1x1 'SAME' conv (w [1,1,Cin,Cout]) as an int8 product on per-item
+    and per-output-channel scales (JAX ``dot1x1_int8``); output in x's
+    dtype."""
+    if qw is None:
+        qw = QuantKernel.of(w.to(x.dtype))
+    return _Dot1x1Int8.apply(x, w.to(x.dtype), qw)

@@ -9,9 +9,13 @@ the config, the checkpoint loaded and every mode of ``tester.modes`` run
 (``Tester.dodajob``).  ``exp.remat`` is off unless given (a training-memory
 knob that would make every guided backward recompute the blocks).  The
 checkpoint is ``tester.checkpoint`` itself or that name under
-``model_dir``; nothing is downloaded.  ``BABE_PRECISION`` (``bf16`` or
-``int8``) sets the network's precision, ``BABE_INT8_MINC`` the narrowest
-dilation stack that runs int8.  It runs on the card, and then ends with a
+``model_dir``, a ``.ckpt`` pickle or a reference ``.pt`` torch checkpoint
+(give ``network=cqtdiff+_ckpt`` for the published weights); nothing is
+downloaded.  ``BABE_PRECISION`` (``bf16`` or ``int8``) sets the network's
+precision, and the JAX package's int8 knobs (``BABE_INT8_MINC``, the
+narrowest conv that runs int8, ``BABE_INT8_FUSED``, ``BABE_INT8_BWD``,
+``BABE_INT8_SCALE``, ``BABE_INT8_OPS``; ``models/cqtdiff.py``) its int8
+configuration.  It runs on the card, and then ends with a
 line ``kernel launches: {...}`` (each hand kernel's launches in the run);
 the override ``device=cpu`` runs the plain PyTorch path on the CPU.
 """

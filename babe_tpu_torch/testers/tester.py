@@ -24,7 +24,9 @@ Each mode writes the JAX mode's files (wavs, ``.npz`` trajectories,
 run eagerly on the tester's device; noise comes from one seeded
 ``torch.Generator`` stream (``next_key``).  The tester also carries what
 ``api.BABE`` runs on: checkpoint loading with a shape check against the
-built model, the sampler factory, the STFT denoiser chain and the
+built model (``.ckpt`` pickles of either package, and the reference's
+``.pt`` torch checkpoints through ``utils/torch_ckpt.py``, with the frame
+self-check), the sampler factory, the STFT denoiser chain and the
 autoregressive long-input loop (``_ar_loop``).
 """
 
@@ -49,6 +51,10 @@ from babe_tpu_torch.sampling.heun import SamplerConfig
 from babe_tpu_torch.utils import logging as ulog
 from babe_tpu_torch.utils.logging import MetricsLogger, write_audio_file
 from babe_tpu_torch.utils.metrics import lsd, lsd_high_band
+from babe_tpu_torch.utils.torch_ckpt import (convert_state_dict,
+                                             extract_network_state,
+                                             fill_variables,
+                                             read_torch_checkpoint)
 from babe_tpu_torch.utils.weights import _flatten, load_flax, to_flax
 
 # samples dropped from the end of every autoregressive chunk's prediction
@@ -86,10 +92,12 @@ class _WeightsUnpickler(pickle.Unpickler):
 
 
 def read_checkpoint(path: str) -> dict:
-    """The payload dict of a ``.ckpt`` pickle written by either package."""
+    """The payload dict of a ``.ckpt`` pickle written by either package, or
+    the unpickled dict of a reference ``.pt`` torch checkpoint."""
     if path.endswith(".pt"):
-        raise NotImplementedError(
-            "loading reference .pt torch checkpoints is not ported yet")
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"checkpoint not found: {path!r}")
+        return read_torch_checkpoint(path)
     if path.rstrip("/").endswith(ORBAX_EXT) or os.path.isdir(path):
         raise NotImplementedError(
             "loading orbax checkpoint directories is not ported yet")
@@ -153,7 +161,10 @@ class Tester:
         return torch.Generator(device=self.device).manual_seed(s)
 
     def load_checkpoint(self, path: str):
-        """Load a ``.ckpt`` pickle (the EMA weights when present)."""
+        """Load a ``.ckpt`` pickle (the EMA weights when present) or a
+        reference ``.pt`` torch checkpoint."""
+        if path.endswith(".pt"):
+            return self._load_torch_checkpoint(path)
         payload = read_checkpoint(path)
         src = payload.get("ema", payload.get("params"))
         if src is None:
@@ -163,6 +174,67 @@ class Tester:
         self._check_ckpt_compat(template, src, payload, path)
         self.set_variables(src, payload.get("buffers", {}),
                            it=int(payload.get("it", 0)))
+
+    def _load_torch_checkpoint(self, path: str):
+        """A reference ``.pt``: the EMA weights when present (then network,
+        ema_model, state_dict, model), converted to the JAX layout and
+        filled into the built network with a strict shape check that names
+        the first mismatching keys; ``it`` carried over.  With the
+        ``oct_pow2`` or ``compat`` frame the frame self-check runs; with
+        the ``native`` frame a warning says that the published weights need
+        the checkpoint-compatible frame."""
+        mode = self.model.cqt.mode
+        if mode == "native":
+            print("WARNING: loading a PyTorch checkpoint with the 'native' "
+                  "CQT frame. Published reference weights were trained with "
+                  "the cqt_nsgt_pytorch frame — use network=cqtdiff+_ckpt "
+                  "(network.cqt.mode=oct_pow2) for faithful reconstruction.")
+        ckpt = read_checkpoint(path)
+        converted = convert_state_dict(extract_network_state(ckpt,
+                                                             prefer="ema"))
+        params, buffers = to_flax(self.model.net)
+        v = fill_variables({"params": params, "buffers": buffers}, converted,
+                           strict=True)
+        it = int(ckpt.get("it", 0)) if isinstance(ckpt, dict) else 0
+        self.set_variables(v["params"], v.get("buffers", {}), it=it)
+        if mode in ("oct_pow2", "compat"):
+            self._frame_self_check()
+
+    def _frame_self_check(self) -> float:
+        """At sigma = sigma_data the EDM preconditioning gives cskip = 1/2,
+        so half of D(x) comes from the network: trained weights with the
+        frame they were trained with return D(x) ~ x on a clean in-band
+        signal (one tone per octave of the CQT ladder at the data's RMS),
+        a relative residual well under 0.35; a wrong frame or untrained
+        weights give about 0.5 or more, and a warning says so.  Returns
+        the residual."""
+        den, hpf = self._denoiser_fn()
+        sigma_data = float(self.edm.p.sigma_data)
+        freqs = np.asarray(self.model.cqt.freqs)
+        bpo = self.model.cqt.bins_per_oct
+        t_ax = np.arange(self.audio_len) / self.fs
+        x = np.sum([np.sin(2 * np.pi * f * t_ax)
+                    for f in freqs[bpo // 2::bpo]], axis=0)
+        x = torch.as_tensor((x / np.std(x) * sigma_data)[None],
+                            dtype=torch.float32, device=self.device)
+        if hpf is not None:
+            x = hpf(x)
+        sig = torch.full((1, 1), sigma_data, device=self.device)
+        with torch.no_grad():
+            x_hat = den(x, sig)
+        resid = float(torch.linalg.norm(x_hat - x) / torch.linalg.norm(x))
+        if resid > 0.35:
+            print(f"WARNING: frame self-check FAILED (relative denoiser "
+                  f"residual {resid:.3f} at sigma={sigma_data:g}; trained "
+                  f"weights + matching CQT frame should give << 0.35, a "
+                  f"wrong frame or untrained weights give ~0.5+). If these "
+                  f"are published weights, the oct_pow2 frame likely "
+                  f"mismatches the cqt_nsgt_pytorch frame they were trained "
+                  f"with.")
+        else:
+            print(f"frame self-check OK (denoiser residual {resid:.3f} at "
+                  f"sigma={sigma_data:g})")
+        return resid
 
     def _check_ckpt_compat(self, template, src, payload, path):
         """Fail at load time, naming the mismatched parameters and the

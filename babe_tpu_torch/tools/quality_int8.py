@@ -8,12 +8,18 @@ same seed, ``BABE_PRECISION=bf16`` and ``BABE_PRECISION=int8``, and
 ``BABE_INT8_MINC=16`` so that every dilation stack of the tiny network
 (16, 16 and 32 channels) runs the int8 stage, and reports the per-item LSD
 and high-band LSD deltas, int8 minus bf16.  Gate: |mean LSD delta| < 0.05
-dB, and on the card the int8 run launched the int8 stage (its launches are
-read from the test CLI's ``kernel launches`` line).  The trajectory mode
-of the JAX tool is ``chip_smoke.py``'s ``quality`` phase here.
+dB, and on the card the int8 run launched its configuration's int8 conv
+(K3 for the fused chain, C8 for the unfused convs; the launches are read
+from the test CLI's ``kernel launches`` line).  The trajectory mode of the
+JAX tool is ``chip_smoke.py``'s ``quality`` phase here.
 
-    python -m babe_tpu_torch.tools.quality_int8 --mode lsd [--workdir DIR] \\
-        [--T 15] [--device cuda]
+The int8 run takes the environment's int8 knobs (``models/cqtdiff.py``):
+the port's default is the fused chain; the JAX tool measures the JAX
+package's default, the unfused convs with the exact input gradient, which
+is ``BABE_INT8_FUSED=0``.
+
+    [BABE_INT8_FUSED=0] python -m babe_tpu_torch.tools.quality_int8 \\
+        --mode lsd [--workdir DIR] [--T 15] [--device cuda]
 
 Prints one JSON line; exit 0 iff the gate passes.
 """
@@ -21,10 +27,12 @@ Prints one JSON line; exit 0 iff the gate passes.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
 
+from babe_tpu_torch.ops.conv_kernels import Int8Config
 from babe_tpu_torch.tools.capability_e2e import (BLIND_TEST, TINY,
                                                  blind_records,
                                                  default_workdir,
@@ -44,8 +52,13 @@ def run_lsd(workdir: str, T: int, device: str = "cuda") -> dict:
             f"{workdir} first")
     ckpt = os.path.join(exp_dir, ckpts[-1])
     results, launches = {}, {}
+    env8 = dict(os.environ, BABE_PRECISION="int8", BABE_INT8_MINC="16")
+    cfg = Int8Config.from_env(env8)
+    kernel = "fused_stage_int8" if cfg.fused is not None else "conv_int8"
     for prec in ("bf16", "int8"):
-        env = dict(os.environ, BABE_PRECISION=prec, BABE_INT8_MINC="16")
+        env = (env8 if prec == "int8"
+               else dict(os.environ, BABE_PRECISION=prec,
+                         BABE_INT8_MINC="16"))
         mdir = os.path.join(workdir, f"q_{prec}")
         os.makedirs(mdir, exist_ok=True)
         rotate_metrics(mdir)
@@ -63,17 +76,19 @@ def run_lsd(workdir: str, T: int, device: str = "cuda") -> dict:
     d_lsd = [i8["lsd"] - bf["lsd"] for bf, i8 in pairs]
     d_hb = [i8["lsd_high_band"] - bf["lsd_high_band"] for bf, i8 in pairs]
     mean_d = sum(d_lsd) / len(d_lsd)
-    k3 = launches["int8"].get("fused_stage_int8", 0)
+    k8 = launches["int8"].get(kernel, 0)
     return {
         "mode": "lsd", "items": len(d_lsd), "T": T, "device": device,
+        "int8_config": dataclasses.asdict(cfg),
         "lsd_bf16": [r["lsd"] for r in results["bf16"]],
         "lsd_int8": [r["lsd"] for r in results["int8"]],
         "lsd_delta_mean": mean_d,
         "lsd_hb_delta_mean": sum(d_hb) / len(d_hb),
-        "k3_launches_int8": k3,
+        "k3_launches_int8": launches["int8"].get("fused_stage_int8", 0),
+        "c8_launches_int8": launches["int8"].get("conv_int8", 0),
         "k3_launches_bf16": launches["bf16"].get("fused_stage_int8", 0),
         "gate_pass": bool(abs(mean_d) < 0.05
-                          and (device == "cpu" or k3 > 0)),
+                          and (device == "cpu" or k8 > 0)),
     }
 
 

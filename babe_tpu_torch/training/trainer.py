@@ -20,6 +20,14 @@ schedule) does, operation for operation in fp32:
   * gradient accumulation (``exp.num_accumulation_rounds``) as the mean of
     the rounds' gradients, and the sigma-binned loss statistics.
 
+Under ``BABE_PRECISION=int8`` the network trains in int8
+(quantization-aware training, as the JAX trainer does): the forward runs
+the int8 convs of the environment's int8 knobs (``models/cqtdiff.py``), and
+every step's backward runs inside ``exact_backward()``, the exact input
+gradients whatever ``BABE_INT8_BWD`` says; the weights' gradients are the
+straight-through ones (the fused chain's: the exact stage's; the unfused
+convs': g against the dequantized int8 input).
+
 Random draws (the training sigmas and noise) come from one
 ``torch.Generator`` on the training device, seeded from ``exp.seed``; the
 weights from the model's seeded init.  Checkpoints are the JAX trainer's
@@ -45,6 +53,7 @@ import time
 import numpy as np
 import torch
 
+from babe_tpu_torch.ops.conv_kernels import exact_backward
 from babe_tpu_torch.ops.resample import resample, resample_batch
 from babe_tpu_torch.testers.tester import read_checkpoint
 from babe_tpu_torch.utils.device import check_device
@@ -80,6 +89,8 @@ class Trainer:
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
         model.init(seed=seed, device=self.device)
         self.net = model.net
+        if os.environ.get("BABE_PRECISION", "bf16") == "int8":
+            self.net.set_precision("int8")
         self.params = dict(self.net.named_parameters())
         self.ema = {k: p.detach().clone() for k, p in self.params.items()}
         self.mu = {k: torch.zeros_like(p) for k, p in self.params.items()}
@@ -210,10 +221,12 @@ class Trainer:
             s_r = None if sigma is None else sigma.reshape(rounds, -1, 1)[r]
             n_r = None if noise is None else noise.reshape(
                 rounds, -1, noise.shape[-1])[r]
-            err2, sig = self.edm.loss_fn(self.gen, self.model.apply, xs[r],
-                                         self.use_dc, sigma=s_r, noise=n_r)
-            loss = err2.mean()
-            loss.backward()
+            with exact_backward():
+                err2, sig = self.edm.loss_fn(self.gen, self.model.apply,
+                                             xs[r], self.use_dc, sigma=s_r,
+                                             noise=n_r)
+                loss = err2.mean()
+                loss.backward()
             losses.append(loss.detach())
             e2s.append(err2.detach())
             sigs.append(sig.detach())

@@ -63,7 +63,11 @@ Phases (any failure exits non-zero; no phase catches and carries on):
                 a stack frame or spills).  Each shape also gets
                 its time, its bound, the plain version's time and a cuDNN
                 yardstick (a conv, or its weight gradient; bf16 for K3: no
-                PyTorch call computes an int8 conv).
+                PyTorch call computes an int8 conv); C8 (conv_int8) and Q8
+                (act_amax, act_quant) at every int8 stage shape (C >= 96)
+                at batch 1 and 4, as the stage's forward and as its int8
+                input gradient, bit-equal to their plain versions (q, the
+                scales, the int32 accumulator, the output).
   3. probe      the int8 probe's kernels (P1 GEMM, P2 stage core on the
                 stage engine's loop) against their plain versions (int8
                 bit-exact), P1 also at the edge shapes GEMM_EDGE and
@@ -92,6 +96,29 @@ Phases (any failure exits non-zero; no phase catches and carries on):
                 requests and one informed one on 184184 samples of seeded
                 low-passed audio.  The launch counters are zeroed just before
                 each model's requests and read just after.
+     int8modes  the JAX package's own int8 configurations (the unfused
+                int8 convs C8 and the quantizers Q8): the JAX API's int8
+                (BABE_INT8_FUSED=0 BABE_INT8_BWD=1) and BABE_INT8_SCALE=
+                amax BABE_INT8_OPS=all, each held at flagship widths on a
+                short segment to the CPU's fp32 result within 1.5x of the
+                CPU's own int8 error, then serving one guided blind request
+                at the flagship (counters zeroed just before, read just
+                after; the second also holds act_rescale at the int8 1x1
+                shapes it ran, and P1 the int8 1x1 product at shapes
+                torch._int_mm does not take, bit for bit); then two
+                quantization-aware training steps at the flagship under
+                BABE_PRECISION=int8, in the fused chain and in the JAX
+                API's int8 (finite loss and gradients, the int8 forward
+                and weight-gradient kernels launched).
+     pt         the seeded flagship weights as a reference-format .pt
+                (this script's own inverse name map) and as a .ckpt, both
+                through BABE.load: equal weights and configs (the oct_pow2
+                frame); on the card one denoiser evaluation twice and four
+                blind requests per route, interleaved, finite, the .pt vs
+                .ckpt difference within PT_K times one route's own
+                run-to-run spread (the card's atomics; 0 where it is 0);
+                on the CPU one blind request through each route at
+                flagship widths on a short segment, equal bit for bit.
   6. long       one whole recording: the flagship (bf16) and the
                 full-width denoiser from seeds, ``BABE.load(ckpt,
                 denoiser_checkpoint=...)``, one blind ``enhance(x, 44100,
@@ -135,6 +162,10 @@ Phases (any failure exits non-zero; no phase catches and carries on):
   iir           (not by default) one guided evaluation of informed BWE at
                 the flagship with the firwin, cheby1 and biquad
                 degradations, and the IIR recursion alone, timed.
+  gates         (not by default) the capability tool at 3000 steps over
+                two trainings, each checkpoint through quality_int8 in the
+                fused chain and in the JAX tool's configuration (the
+                unfused convs); reported, not gated.
 
 The last two lines are the kernels line and the result line
 ``{"ok": true, "device": {...}}``.
@@ -185,6 +216,14 @@ REPLACES = {
     # the prologues of that vjp (gelu(x*a), and the cotangent of the conv
     # output), formed for the weight gradient's GEMM
     "stage_dw_operands": "babe_tpu/ops/conv_kernels.py:1090",
+    # no Pallas kernel: XLA's int8 convolution of the unfused int8 path
+    # (conv_general_dilated to int32, then the rescale)
+    "conv_int8": "babe_tpu/ops/conv_kernels.py:179",
+    # no Pallas kernel: the XLA fusions of the per-item quantizers and of
+    # the int8 1x1's rescale
+    "act_amax": "babe_tpu/ops/conv_kernels.py:126",
+    "act_quant": "babe_tpu/ops/conv_kernels.py:137",
+    "act_rescale": "babe_tpu/ops/conv_kernels.py:305",
 }
 SOURCES = {
     "conv5x3": "babe_tpu_torch/csrc/conv5x3.cu",
@@ -200,6 +239,10 @@ SOURCES = {
     "conv_dw": "babe_tpu_torch/csrc/conv_dw.cu",
     "stage_dw_operands": "babe_tpu_torch/csrc/conv_dw.cu",
     "fused_stage_dw": "babe_tpu_torch/csrc/conv_dw.cu",
+    "conv_int8": "babe_tpu_torch/csrc/conv_int8.cu",
+    "act_amax": "babe_tpu_torch/csrc/quant_int8.cu",
+    "act_quant": "babe_tpu_torch/csrc/quant_int8.cu",
+    "act_rescale": "babe_tpu_torch/csrc/quant_int8.cu",
 }
 # what each kernel's ms, plain_ms, bound_ms and library_ms sum over
 PER = {
@@ -248,6 +291,20 @@ PER = {
                       "each its operand pass and its GEMM; library_ms is "
                       "cuDNN's weight gradient of the same conv (without "
                       "the prologues)",
+    "conv_int8": "one guided evaluation in the JAX API's int8 "
+                 "(BABE_INT8_FUSED=0 BABE_INT8_BWD=1), bf16 carrier, batch "
+                 "1: each int8 stage's forward and its int8 input gradient; "
+                 "library_ms is a bf16 cuDNN conv (no PyTorch call computes "
+                 "an int8 conv)",
+    "act_amax": "one guided evaluation in the JAX API's int8: the int8 "
+                "input gradients' per-item amax; library_ms is "
+                "torch.linalg.vector_norm(ord=inf)",
+    "act_quant": "one guided evaluation in the JAX API's int8: each int8 "
+                 "stage's hinted quantize and its cotangent's; no PyTorch "
+                 "call computes it",
+    "act_rescale": "one guided evaluation under BABE_INT8_SCALE=amax "
+                   "BABE_INT8_OPS=all: the int8 1x1s' rescales; no PyTorch "
+                   "call computes it",
 }
 # where each kernel's launch count comes from
 LAUNCHES_FROM = {
@@ -262,6 +319,10 @@ LAUNCHES_FROM = {
     "conv_dw": "the train phase (all its steps)",
     "stage_dw_operands": "the train phase (all its steps)",
     "fused_stage_dw": "the train phase (all its steps)",
+    "conv_int8": "the JAX API's int8 request (int8modes)",
+    "act_amax": "the JAX API's int8 request (int8modes)",
+    "act_quant": "the JAX API's int8 request (int8modes)",
+    "act_rescale": "the amax, all-ops int8 request (int8modes)",
 }
 # the weight gradients are summed over up to 2.9M positions in another
 # order than the plain version's (fp32 partials added by atomics): both
@@ -277,6 +338,15 @@ BF16_PATH = ("conv5x3", "fused_stage", "stage_fwd_operand",
              "fused_stage_bwd", "filter_fit", "stage_dw_operands")
 INT8_PATH = BF16_PATH + ("fused_stage_int8", "stage_int8_operand")
 PROBE_PATH = ("probe_gemm", "probe_stage")
+# the unfused int8 path's kernels: the JAX API's int8 request launches the
+# first three, the amax, all-ops one all four
+C8_PATH = ("conv_int8", "act_amax", "act_quant")
+INT8_MODES = (
+    ("JAX API int8", {"BABE_INT8_FUSED": "0", "BABE_INT8_BWD": "1"},
+     C8_PATH),
+    ("amax, all ops", {"BABE_INT8_SCALE": "amax", "BABE_INT8_OPS": "all"},
+     C8_PATH + ("act_rescale",)),
+)
 
 
 def log(*a):
@@ -562,6 +632,8 @@ def phase_kernels(results: dict):
     # drawn after every earlier edge check, so those keep their inputs
     for dtype in (torch.bfloat16, torch.float32):
         ok &= _stage_fwd_edges(dtype, g9)
+    ok &= _kernel_int8_convs({k: c for k, c in k2_shapes.items()
+                              if k[2] >= 96}, account, library_conv)
     ok &= _k2_fp32_evidence(k2_shapes)
     _engine_digests()
     ok &= _kernel_filter_fit(agg["filter_fit"])
@@ -569,8 +641,9 @@ def phase_kernels(results: dict):
     ok &= _kernel_dw(account, k1_shapes, k2_shapes)
     ok &= _tiny_net_checks()
     for name in ("stage_dw_operands", "stage_fwd_operand",
-                 "stage_int8_operand"):
+                 "stage_int8_operand", "act_quant"):
         agg[name]["library_ms"] = None
+    del agg["act_rescale"]  # measured at the 1x1 shapes in int8modes
     for name, a in agg.items():
         if name == "filter_fit":
             continue  # logged by _kernel_filter_fit
@@ -588,6 +661,110 @@ def phase_kernels(results: dict):
     if not ok:
         raise RuntimeError("a kernel disagrees with its plain version "
                            f"beyond the stated tolerance {TOL}")
+
+
+def _kernel_int8_convs(shapes, account, library_conv) -> bool:
+    """C8 (``conv_int8``) and Q8 (``act_amax``, ``act_quant``) against
+    their plain versions at every flagship int8 stage shape (C >= 96, the
+    JAX API's int8 convs) at batch 1 and 4, in the two roles a guided
+    evaluation gives them: the stage's forward (a bf16 activation quantized
+    at its hint, the stage's kernel) and its int8 input gradient (a bf16
+    cotangent at its dynamic amax, the flipped, io-swapped kernel), bf16
+    out; fp32 out at batch 1.  The amax, q, the scales, the int32
+    accumulator and the output must equal the plain version's bit for bit.
+    At batch 1 in bf16 it times each kernel, the plain versions, and the
+    yardsticks (a bf16 cuDNN conv; torch.linalg.vector_norm for the
+    amax)."""
+    import torch
+
+    from babe_tpu_torch import kernels
+    from babe_tpu_torch.ops import conv_kernels as ck
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(88)
+    ok = True
+    for (F, T, C, d), count in sorted(shapes.items()):
+        for B, dtype in ((1, torch.bfloat16), (4, torch.bfloat16),
+                         (1, torch.float32)):
+            dn = str(dtype).split(".")[-1]
+            w = (torch.randn((5, 3, C, C), generator=g, device=dev)
+                 / math.sqrt(15 * C)).to(dtype)
+            h = torch.nn.functional.gelu(torch.randn(
+                (B, F, T, C), generator=g, device=dev)).to(dtype)
+            gy = torch.randn((B, F, T, C), generator=g, device=dev).to(dtype)
+            bound = 1.02 * h.float().abs().amax((1, 2, 3))
+            line, good = [], True
+            for role, x, wk in (("fwd", h, w), ("dx", gy, ck._flip_io(w))):
+                amax = bound
+                if role == "dx":
+                    amax = kernels.launch_act_amax(x)
+                    ra = x.float().abs().amax((1, 2, 3))
+                    good &= bool(torch.equal(amax, ra))
+                q, sx = kernels.launch_act_quant(x, amax)
+                rq, rs = ck.quant_act_ref(x, amax)
+                qw, sw = ck.quant_weight_per_cout(wk)
+                qwt = kernels.tap_major(qw)
+                scale = ck.int8_scale(sx, sw)
+                out, acc = kernels.launch_conv_int8(q, qwt, scale, d, dtype,
+                                                    want_acc=True)
+                racc = ck.conv_int8_acc_ref(q, qw, (d, 1))
+                rout = ck.int8_rescale_ref(racc, sx, sw, dtype)
+                torch.cuda.synchronize()
+                eq = {"q": torch.equal(q, rq), "s": torch.equal(sx, rs),
+                      "acc": torch.equal(acc, racc),
+                      "out": torch.equal(out, rout)}
+                good &= all(eq.values())
+                route = STAGE_ROUTES[kernels.conv_int8_route(B, F, T, C, C,
+                                                             d)]
+                good &= not (B == 1 and dtype == torch.bfloat16
+                             and route != "engine")
+                e = errs(out, rout)
+                line.append(f"{role} [{route}] bit-equal "
+                            f"{'/'.join(k for k, v in eq.items() if v)}"
+                            + ("" if all(eq.values()) else
+                               f" (acc differs at {int((acc != racc).sum())}"
+                               f")"))
+                if B != 1 or dtype != torch.bfloat16:
+                    continue
+                t_k = cuda_time(lambda: kernels.launch_conv_int8(
+                    q, qwt, scale, d, dtype))
+                t_p = cuda_time(lambda: ck.int8_rescale_ref(
+                    ck.conv_int8_acc_ref(q, qw, (d, 1)), sx, sw, dtype),
+                    reps=1)
+                t_l = cuda_time(library_conv(x, wk, d))
+                flops = 2.0 * F * T * C * C * 15
+                nbytes = F * T * C * (1 + 2) + 15 * C * C + 4 * C
+                b, by = bound_ms(flops, nbytes, torch.int8)
+                line[-1] += (f" ms={t_k:.4f} bound={b:.4f}({by}) "
+                             f"plain={t_p:.4f} cudnn(bf16)={t_l:.4f}")
+                account("conv_int8", count, dtype, t_k, t_p, t_l, flops,
+                        nbytes, e, op_dtype=torch.int8)
+                # Q8: x read once, q written (the amax: x read), a few
+                # fp32 operations per element
+                t_q = cuda_time(lambda: kernels.launch_act_quant(x, amax))
+                t_qp = cuda_time(lambda: ck.quant_act_ref(x, amax),
+                                 reps=2)
+                q_bytes = F * T * C * 3 + 8
+                line[-1] += f"; quant ms={t_q:.4f} plain={t_qp:.4f}"
+                account("act_quant", count, dtype, t_q, t_qp, 0.0,
+                        4.0 * F * T * C, q_bytes, (0.0, 0.0, 0.0),
+                        op_dtype=torch.float32)
+                if role == "dx":
+                    flat = x.view(B, -1)
+                    t_a = cuda_time(lambda: kernels.launch_act_amax(x))
+                    t_ap = cuda_time(
+                        lambda: x.float().abs().amax((1, 2, 3)), reps=2)
+                    t_al = cuda_time(lambda: torch.linalg.vector_norm(
+                        flat, float("inf"), dim=1))
+                    line[-1] += (f"; amax ms={t_a:.4f} plain={t_ap:.4f} "
+                                 f"vector_norm={t_al:.4f}")
+                    account("act_amax", count, dtype, t_a, t_ap, t_al,
+                            1.0 * F * T * C, F * T * C * 2 + 4,
+                            (0.0, 0.0, 0.0), op_dtype=torch.float32)
+            ok &= good
+            log(f"C8/Q8 {dn:8s} B={B} F={F:3d} T={T:4d} C={C:3d} d={d:2d} "
+                f"x{count}: {'; '.join(line)} {'ok' if good else 'FAIL'}")
+    return ok
 
 
 K1_ROUTES = ("tile", "narrow in", "narrow out")
@@ -2438,6 +2615,449 @@ def phase_requests(results: dict, T: int = 35, n_blind: int = 2):
         launches[k] = results["launches_int8"][k]
 
 
+class _Int8Env:
+    """The process environment with the int8 knobs ``knobs`` set (every
+    other BABE_INT8_* knob unset), restored on exit."""
+
+    KEYS = ("BABE_PRECISION", "BABE_INT8_FUSED", "BABE_INT8_BWD",
+            "BABE_INT8_SCALE", "BABE_INT8_OPS", "BABE_INT8_MINC")
+
+    def __init__(self, knobs: dict):
+        self.knobs = knobs
+
+    def __enter__(self):
+        self.saved = {k: os.environ.pop(k) for k in self.KEYS
+                      if k in os.environ}
+        os.environ.update(self.knobs)
+
+    def __exit__(self, *exc):
+        for k in self.KEYS:
+            os.environ.pop(k, None)
+        os.environ.update(self.saved)
+
+
+def _int8_mode_check(label: str, knobs: dict, path_kernels) -> None:
+    """One int8 configuration at flagship widths on a short segment (the
+    check phase's weights: O(1) gates, 16384 samples, bf16 carrier): the
+    denoiser output and guidance gradient on the card and on the CPU, each
+    against the CPU's fp32 result; the card must stay within 1.5x of the
+    CPU's own int8 error (as phase_check holds int8), with the unfused
+    path's kernels launched on the card."""
+    import torch
+
+    from babe_tpu_torch import kernels
+    from babe_tpu_torch.config import default_config
+    from babe_tpu_torch.diffusion.edm import EDM
+    from babe_tpu_torch.models.cqtdiff import CQTDiffPlus
+
+    args = default_config(["exp.audio_len=16384", "exp.remat=false"])
+    m = CQTDiffPlus.from_config(args).init(seed=1, device="cpu")
+    _random_flagship_like(m.net, 2)
+    m.net.requires_grad_(False)
+    edm = EDM.from_config(args)
+    x = (0.1 * np.random.default_rng(3).standard_normal((1, 16384))).astype(
+        np.float32)
+    out = {}
+    for dev, dt, prec in (("cpu", torch.float32, None),
+                          ("cpu", torch.bfloat16, "int8"),
+                          ("cuda", torch.bfloat16, "int8")):
+        m.net.compute_dtype = dt
+        with _Int8Env(knobs):
+            m.net.set_precision(prec)
+        m.to(dev)
+        kernels.reset_launch_counts()
+        xt = torch.tensor(x, device=dev, requires_grad=True)
+        y = m.fused_denoiser(edm)(xt, torch.full((1, 1), 0.2, device=dev))
+        (gx,) = torch.autograd.grad((y * y).sum(), xt)
+        out[dev, prec] = (y.detach().cpu().float(), gx.cpu().float())
+    counts = {k: kernels.LAUNCHES[k] for k in path_kernels}
+    good = all(v > 0 for v in counts.values())
+    for what, i in (("denoiser", 0), ("guidance grad", 1)):
+        ref = out["cpu", None][i]
+        e_card = float((out["cuda", "int8"][i] - ref).norm() / ref.norm())
+        e_cpu = float((out["cpu", "int8"][i] - ref).norm() / ref.norm())
+        ok_v = (bool(torch.isfinite(out["cuda", "int8"][i]).all())
+                and e_card <= 1.5 * e_cpu)
+        good &= ok_v
+        log(f"int8modes check ({label}, bf16 carrier, flagship widths, "
+            f"16384 samples): {what} vs fp32 CPU: card l2_rel={e_card:.3e}, "
+            f"CPU l2_rel={e_cpu:.3e} (card within 1.5x) "
+            f"{'ok' if ok_v else 'FAIL'}")
+    log(f"int8modes check ({label}): card launches {counts}")
+    if not good:
+        raise RuntimeError(f"int8modes: the {label} check failed")
+
+
+def _qat_steps(knobs: dict, steps: int = 2) -> str:
+    """``steps`` training steps at the flagship (batch 4, 184184 samples,
+    remat, bf16) under BABE_PRECISION=int8 and ``knobs``, on seeded audio:
+    each loss and gradient norm finite, and the int8 path's forward and
+    weight-gradient kernels launched."""
+    import torch
+
+    from babe_tpu_torch import kernels
+    from babe_tpu_torch.config import default_config
+    from babe_tpu_torch.setup import setup_diff_parameters, setup_network
+    from babe_tpu_torch.training.trainer import Trainer
+
+    tmp = tempfile.mkdtemp(prefix="babe_qat_")
+    try:
+        args = default_config([
+            "exp=maestro22k_8s", "network=cqtdiff+", f"model_dir={tmp}",
+            "exp.resume=false", "tester.do_test=false",
+            "logging.save_model=false"])
+        with _Int8Env(dict(knobs, BABE_PRECISION="int8")):
+            model = setup_network(args)
+            tr = Trainer(args, None, model, setup_diff_parameters(
+                args, cqt_hpf=model.apply_hpf_DC), device="cuda")
+        B, L = int(args.exp.batch), int(args.exp.audio_len)
+        x = torch.as_tensor(np.stack([_lowpassed_audio(L, 22050, 60 + i)
+                                      for i in range(B)]), device="cuda")
+        kernels.reset_launch_counts()
+        rec = []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = tr._step(x)
+            torch.cuda.synchronize()
+            rec.append((time.perf_counter() - t0, float(m["loss"]),
+                        float(m["grad_norm"]), bool(m["nonfinite"])))
+        counts = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        fused = tr.net.int8_config.fused is not None
+        need = (("fused_stage_int8", "fused_stage_dw") if fused
+                else ("conv_int8", "act_quant", "conv_dw"))
+        ok = (all(math.isfinite(r[1]) and math.isfinite(r[2])
+                  and not r[3] for r in rec)
+              and all(counts.get(k, 0) > 0 for k in need))
+        steps = [tuple(round(v, 5) for v in r[:3]) for r in rec]
+        line = (f"{'fused chain' if fused else 'unfused convs'}: steps "
+                f"(s, loss, grad norm) {steps}, launches {counts}")
+        if not ok:
+            raise RuntimeError(f"int8modes: QAT failed: {line}")
+        del tr, model
+        torch.cuda.empty_cache()
+        return line
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _rescale_checks(shapes, results) -> None:
+    """Q8's ``act_rescale`` against its plain version at the int8 1x1
+    products one guided evaluation ran (recorded: (B, F, T, N) and the
+    count), bit for bit, timed beside the plain version; the sums go to
+    the kernels line."""
+    import torch
+
+    from babe_tpu_torch import kernels
+    from babe_tpu_torch.ops import conv_kernels as ck
+
+    g = torch.Generator(device="cuda").manual_seed(77)
+    a = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": None,
+         "max_abs_err": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0, "shapes": 0}
+    for (B, F, T, N), count in sorted(shapes.items()):
+        acc = torch.randint(-2**24, 2**24, (B, F, T, N), generator=g,
+                            device="cuda", dtype=torch.int32)
+        sx = torch.rand((B,), generator=g, device="cuda") / 100
+        sw = torch.rand((N,), generator=g, device="cuda") / 100
+        out = kernels.launch_act_rescale(acc, ck.int8_scale(sx, sw),
+                                         torch.bfloat16)
+        ref = ck.int8_rescale_ref(acc, sx, sw, torch.bfloat16)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            raise RuntimeError(f"act_rescale differs from its plain version "
+                               f"at {(B, F, T, N)}")
+        sc = ck.int8_scale(sx, sw)
+        t_k = cuda_time(lambda: kernels.launch_act_rescale(
+            acc, sc, torch.bfloat16))
+        t_p = cuda_time(lambda: ck.int8_rescale_ref(acc, sx, sw,
+                                                    torch.bfloat16), reps=2)
+        n = B * F * T * N
+        b, by = bound_ms(n, 6.0 * n, torch.float32)
+        a["ms"] += count * t_k
+        a["plain_ms"] += count * t_p
+        a["bound_ms"] += count * b
+        a["ops_ms"] += count * bound_ms(n, 0.0, torch.float32)[0]
+        a["bytes_ms"] += count * 1e3 * 6.0 * n / HBM_BPS
+        a["shapes"] += 1
+        log(f"act_rescale B={B} F={F:3d} T={T:4d} N={N:3d} x{count}: "
+            f"bit-equal ms={t_k:.4f} bound={b:.4f}({by}) plain={t_p:.4f}")
+    log(f"act_rescale: per guided evaluation (amax, all ops; bf16) "
+        f"ms={a['ms']:.3f} bound_ms={a['bound_ms']:.3f} "
+        f"plain_ms={a['plain_ms']:.3f}")
+    results["act_rescale"] = a
+
+
+def _int_mm_route_check() -> None:
+    """The int8 1x1 product at shapes ``torch._int_mm`` does not take (M <=
+    16; N not a multiple of 8), which go to P1's GEMM: int32 equal to the
+    plain version (float64, exact) bit for bit, P1 launched once each."""
+    import torch
+
+    from babe_tpu_torch import kernels
+    from babe_tpu_torch.ops import conv_kernels as ck
+
+    g = torch.Generator().manual_seed(78)
+    for M, K, N in ((8, 128, 96), (4096, 96, 36)):
+        a = torch.randint(-127, 128, (M, K), generator=g, dtype=torch.int8)
+        bt = torch.randint(-127, 128, (N, K), generator=g, dtype=torch.int8)
+        n0 = kernels.LAUNCHES["probe_gemm"]
+        out = ck._int_mm(a.cuda(), bt.cuda()).cpu()
+        launched = kernels.LAUNCHES["probe_gemm"] - n0
+        ok = launched == 1 and torch.equal(out, ck._int_mm(a, bt))
+        log(f"int8 1x1 product (M, K, N) = ({M}, {K}, {N}) through P1: "
+            f"bit-equal to the plain version {ok}")
+        if not ok:
+            raise RuntimeError(f"the int8 1x1 product at {(M, K, N)} did "
+                               f"not run P1 or differs from its plain "
+                               f"version")
+
+
+def phase_int8modes(results: dict, T: int = 35):
+    """The JAX package's int8 configurations on the card
+    (``INT8_MODES``): the JAX API's int8 (``BABE_INT8_FUSED=0
+    BABE_INT8_BWD=1``: one int8 conv, C8, per stage with the guidance
+    gradient's input cotangent in int8) and ``BABE_INT8_SCALE=amax
+    BABE_INT8_OPS=all`` (dynamic scales, the 1x1s in int8 too).  For each:
+    the check at flagship widths on a short segment (``_int8_mode_check``),
+    then one guided blind request at the flagship (seed-0 ``.ckpt``,
+    ``BABE.load(precision="int8")`` under the knobs, 184184 samples,
+    tester.T = 35) with the counters zeroed just before and read just
+    after; the amax, all-ops request also records its int8 1x1 shapes,
+    where ``act_rescale`` is then held to its plain version; the int8 1x1
+    product at shapes ``torch._int_mm`` does not take goes through P1
+    (``_int_mm_route_check``).  Then two quantization-aware training steps at the flagship under
+    BABE_PRECISION=int8 in the default int8 (the fused chain) and in the
+    JAX API's (``_qat_steps``)."""
+    import torch
+
+    import babe_tpu_torch.models.blocks as tb
+    from babe_tpu_torch import kernels
+    from babe_tpu_torch.api import BABE
+    from babe_tpu_torch.config import default_config
+
+    t00 = time.perf_counter()
+    args = default_config(["tester=blind_bwe"])
+    L, fs = int(args.exp.audio_len), int(args.exp.sample_rate)
+    tmpdir = tempfile.mkdtemp(prefix="babe_smoke_")
+    path = _flagship_ckpt(args, tmpdir)
+    x = _lowpassed_audio(L, fs, seed=50)
+    launches = results.setdefault("launches", {})
+    for label, knobs, path_kernels in INT8_MODES:
+        t0 = time.perf_counter()
+        _int8_mode_check(label, knobs, path_kernels)
+        t1 = time.perf_counter()
+        with _Int8Env(knobs):
+            m = BABE.load(path, overrides=[f"tester.T={T}"],
+                          precision="int8")
+        cfg = m._tester.model.net.int8_config
+        shapes: dict = {}
+        hooks = []
+        if "act_rescale" in path_kernels:
+            def hook(mod, inp, out):
+                if len(shapes_seen) < n1x1:
+                    shapes_seen.append(id(mod))
+                    key = (*inp[0].shape[:3], out.shape[-1])
+                    shapes[key] = shapes.get(key, 0) + 1
+
+            convs = [c for c in m._tester.model.net.modules()
+                     if isinstance(c, tb.Conv2d) and c.kernel_size == (1, 1)
+                     and c.int8_active()]
+            n1x1, shapes_seen = len(convs), []
+            hooks = [c.register_forward_hook(hook) for c in convs]
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t2 = time.perf_counter()
+        out, info = m.enhance(x, fs, seed=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t2
+        counts = dict(kernels.LAUNCHES)
+        for h in hooks:
+            h.remove()
+        fin = (bool(np.isfinite(out).all()) and out.shape == (1, L)
+               and np.isfinite(info["fc"]).all())
+        log(f"int8modes request ({label}; {cfg}): loaded in "
+            f"{t2 - t1:.1f} s; one blind request {wall:.2f} s, realtime "
+            f"factor {L / fs / wall:.3f}x, fc="
+            f"{np.round(info['fc'], 1).tolist()} finite={fin}; launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        if not fin or any(counts[k] <= 0 for k in path_kernels) or counts[
+                "fused_stage_int8"]:
+            raise RuntimeError(f"int8modes: the {label} request failed, or "
+                               f"did not run the unfused int8 kernels")
+        results.setdefault("int8modes", []).append(
+            {"config": label, "wall_s": wall, "rtf": L / fs / wall})
+        if "act_rescale" in path_kernels:
+            launches["act_rescale"] = counts["act_rescale"]
+            _rescale_checks(shapes, results)
+        else:
+            launches.update({k: counts[k] for k in path_kernels})
+        del m
+        torch.cuda.empty_cache()
+        log(f"int8modes ({label}): {time.perf_counter() - t0:.1f} s")
+    os.remove(path)
+    os.rmdir(tmpdir)
+    _int_mm_route_check()
+    for label, knobs in (("default int8", {}),
+                         ("JAX API int8", INT8_MODES[0][1])):
+        t0 = time.perf_counter()
+        line = _qat_steps(knobs)
+        log(f"int8modes QAT ({label}): {line}; "
+            f"{time.perf_counter() - t0:.1f} s")
+    log(f"int8modes: {time.perf_counter() - t00:.1f} s")
+
+
+def _reference_state_dict(net) -> dict:
+    """The port's network as a reference ``.pt`` state dict: its own
+    inverse of ``utils/torch_ckpt.py`` (module names with ``.<n>`` indices,
+    the Conv2d wrappers' ``conv`` level dropped, kernels as torch-layout
+    ``weight``, GroupNorm gains (1, C, 1, 1))."""
+    import re
+
+    import torch
+
+    sd = {}
+    for key, v in net.state_dict().items():
+        parts = key.split(".")
+        mods = [re.sub(r"_(\d+)", r".\1", p) if re.fullmatch(
+            r"[A-Za-z]\w*?(_\d+)+", p) else p
+            for p in parts[:-1] if p != "conv"]
+        kind, v = parts[-1], v.detach().float().cpu()
+        if kind == "kernel":
+            kind = "weight"
+            v = (v.permute(3, 2, 0, 1) if v.ndim == 4 else v.t())
+        elif kind == "gamma":
+            v = v.reshape(1, -1, 1, 1)
+        sd[".".join(mods + [kind])] = v.contiguous().clone()
+    return sd
+
+
+# the .pt route on the card: PT_REPS blind requests per route, interleaved
+# with the .ckpt route's; the largest .pt-vs-.ckpt difference may be at
+# most PT_K times the largest difference between two runs of one route
+# (the card's own run-to-run spread: a guided request does not repeat
+# itself bit for bit there, a denoiser evaluation does), and 0 where that
+# spread is 0.  An outlier run enters pairs of both kinds, so without a
+# difference between the routes the ratio stays near 1 (0.93 over 28
+# pairs on an H100)
+PT_REPS = 4
+PT_K = 4.0
+
+
+def _route_spreads(runs) -> tuple[float, float]:
+    """(own, cross) over ``runs`` [(route, array)]: the largest max |diff|
+    between two runs of one route, and between runs of two routes."""
+    own = cross = 0.0
+    for i, (ra, a) in enumerate(runs):
+        for rb, b in runs[i + 1:]:
+            d = float(np.abs(a - b).max())
+            if ra == rb:
+                own = max(own, d)
+            else:
+                cross = max(cross, d)
+    return own, cross
+
+
+def phase_pt(results: dict, T: int = 8):
+    """A reference-format ``.pt`` of the seeded flagship weights
+    (``_reference_state_dict``; no JAX) beside a ``.ckpt`` of the same
+    weights and the same config (``network=cqtdiff+_ckpt``, the
+    checkpoint frame), both loaded with ``BABE.load`` (both before any
+    request, so what a load leaves in the process is shared).  On the
+    card: the loaded weights and the built configs must be equal; one
+    denoiser evaluation per route, twice, interleaved, and ``PT_REPS``
+    blind requests per route (tester.T = T), interleaved, each finite,
+    with the largest .pt-vs-.ckpt difference within ``PT_K`` times the
+    largest difference between two runs of one route (0 where the card
+    repeats itself).  On the CPU, where a run repeats itself bit for bit,
+    one blind request through each route at flagship widths on a short
+    segment (16384 samples, tester.T = 2) must be equal bit for bit."""
+    import torch
+
+    from babe_tpu_torch.api import BABE
+    from babe_tpu_torch.config import default_config
+    from babe_tpu_torch.models.cqtdiff import CQTDiffPlus
+    from babe_tpu_torch.utils.weights import to_flax
+
+    t0 = time.perf_counter()
+    args = default_config(["network=cqtdiff+_ckpt", "tester=blind_bwe"])
+    tmp = tempfile.mkdtemp(prefix="babe_pt_")
+    model = CQTDiffPlus.from_config(args).init(seed=0, device="cpu")
+    params, buffers = to_flax(model.net)
+    ckpt, pt = os.path.join(tmp, "seed0.ckpt"), os.path.join(tmp, "seed0.pt")
+    with open(ckpt, "wb") as f:
+        pickle.dump({"it": 5, "params": params, "buffers": buffers,
+                     "ema": params, "args": args.to_dict()}, f)
+    torch.save({"it": 5, "ema": _reference_state_dict(model.net)}, pt)
+    del model
+    try:
+        over = [f"tester.T={T}"]
+        routes = {"ckpt": BABE.load(ckpt, overrides=over),
+                  "pt": BABE.load(pt, overrides=over)}
+        mc, mp = routes["ckpt"], routes["pt"]
+        sc, sp = (m._tester.model.net.state_dict() for m in (mc, mp))
+        same_w = set(sc) == set(sp) and all(torch.equal(sc[k], sp[k])
+                                            for k in sc)
+        same_cfg = (mc.args.network == mp.args.network
+                    and mc.args.exp == mp.args.exp
+                    and mc.args.tester == mp.args.tester
+                    and mc._tester.model.cqt.mode
+                    == mp._tester.model.cqt.mode == "oct_pow2"
+                    and mc._tester.it == mp._tester.it == 5)
+        L, fs = int(mc.args.exp.audio_len), mc.fs
+        x = _lowpassed_audio(L, fs, seed=40)
+        xd = torch.as_tensor(x, device="cuda").reshape(1, L)
+        sig = torch.full((1, 1), 0.2, device="cuda")
+        den_runs = []
+        with torch.no_grad():
+            for _ in range(2):
+                for r, m in routes.items():
+                    y = m._tester._denoiser_fn()[0](xd, sig)
+                    den_runs.append((r, y.float().cpu().numpy()))
+        req_runs = [(r, m.enhance(x, fs, seed=0)[0])
+                    for _ in range(PT_REPS) for r, m in routes.items()]
+        den_own, den_cross = _route_spreads(den_runs)
+        own, cross = _route_spreads(req_runs)
+        pairs = [float(np.abs(a - b).max())
+                 for i, (_, a) in enumerate(req_runs)
+                 for _, b in req_runs[i + 1:]]
+        finite = all(np.isfinite(a).all() for _, a in den_runs + req_runs)
+        del mc, mp, routes
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        short = ["tester.T=2", "exp.audio_len=16384"]
+        cpu = [BABE.load(p_, overrides=short, device="cpu")
+               for p_ in (ckpt, pt)]
+        xs = _lowpassed_audio(16384, fs, seed=41)
+        cout = [m.enhance(xs, fs, seed=0)[0] for m in cpu]
+        cpu_equal = bool(np.array_equal(cout[0], cout[1]))
+    finally:
+        for p_ in (ckpt, pt):
+            os.remove(p_)
+        os.rmdir(tmp)
+    card_ok = den_cross <= PT_K * den_own and cross <= PT_K * own
+    good = (same_w and same_cfg and finite and card_ok and cpu_equal
+            and bool(np.isfinite(cout[0]).all()))
+    log(f"pt: seeded flagship weights as .ckpt and as a reference .pt, "
+        f"both through BABE.load: weights equal {same_w}, configs equal "
+        f"{same_cfg} (frame oct_pow2); on the card (bar: .pt vs .ckpt <= "
+        f"{PT_K:g}x one route's own spread) one denoiser evaluation x2 per "
+        f"route: .pt vs .ckpt max |diff| {den_cross:.3e}, own {den_own:.3e}"
+        f"; blind request (T={T}) x{PT_REPS} per route, interleaved: .pt vs "
+        f".ckpt {cross:.3e}, own {own:.3e} (every pair, run order ckpt, "
+        f"pt, ...: {', '.join(f'{v:.3e}' for v in pairs)}); finite {finite}"
+        f"; CPU blind request (flagship widths, 16384 samples, T=2) .pt vs "
+        f".ckpt bit-equal {cpu_equal} ({time.perf_counter() - t1:.1f} s) "
+        f"{'ok' if good else 'FAIL'}; {time.perf_counter() - t0:.1f} s")
+    results["pt"] = {"card_denoiser_diff": den_cross,
+                     "card_denoiser_own": den_own,
+                     "card_max_diff": cross, "card_own_diff": own,
+                     "cpu_bit_equal": cpu_equal}
+    if not good:
+        raise RuntimeError("pt: the .pt route differs from the .ckpt route")
+
+
 LONG_FS = 44100       # the long request's input rate (resampled to 22.05k)
 LONG_SECONDS = 20.0
 
@@ -3174,6 +3794,47 @@ def phase_capability(results: dict):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def phase_gates(results: dict, its: int = 3000, trainings: int = 2):
+    """(Not by default.) The int8 gate beyond the tools' own 1500 steps:
+    ``trainings`` runs of ``babe_tpu_torch.tools.capability_e2e --its
+    {its}`` (each a training of its own: the card's atomics make two runs
+    differ), each checkpoint then served by ``quality_int8 --mode lsd`` in
+    the port's default int8 (the fused chain, K3) and in the JAX tool's
+    configuration (``BABE_INT8_FUSED=0``: the unfused convs, C8, with the
+    exact input gradient).  Reported per training, not gated: the gates
+    are calibrated at 1500 steps."""
+    import shutil
+
+    rows = []
+    for k in range(trainings):
+        tmp = tempfile.mkdtemp(prefix="babe_gates_")
+        try:
+            cap = _tool_json("babe_tpu_torch.tools.capability_e2e",
+                             ["--workdir", tmp, "--device", "cuda", "--its",
+                              str(its)], timeout=1500)
+            log(f"gates training {k} ({its} its): {json.dumps(cap)}")
+            row = {"capability": cap}
+            for name, knobs in (("fused", {}),
+                                 ("unfused", {"BABE_INT8_FUSED": "0"})):
+                with _Int8Env(knobs):
+                    q = _tool_json("babe_tpu_torch.tools.quality_int8",
+                                   ["--mode", "lsd", "--workdir", tmp,
+                                    "--device", "cuda"], timeout=600)
+                log(f"gates training {k}, quality_int8 ({name}): "
+                    f"{json.dumps(q)}")
+                row[name] = q
+            rows.append(row)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    for k, r in enumerate(rows):
+        log(f"gates training {k}: high-band LSD "
+            f"{r['capability']['lsd_high_band_reconstructed']} (degraded "
+            f"{r['capability']['lsd_high_band_degraded']}); int8 mean LSD "
+            f"delta fused {r['fused']['lsd_delta_mean']:+.4f} dB, unfused "
+            f"{r['unfused']['lsd_delta_mean']:+.4f} dB (bar 0.05)")
+    results["gates"] = rows
+
+
 def _dev_us(e) -> float:
     """An event's own device time in microseconds (the attribute's name
     differs between torch versions)."""
@@ -3265,11 +3926,12 @@ def phase_profile():
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--phases",
-                   default="identify,kernels,probe,check,requests,long,"
-                           "train,quality,cli,capability",
+                   default="identify,kernels,probe,check,requests,"
+                           "int8modes,pt,long,train,quality,cli,capability",
                    help="comma list; 'profile' (not run by default) breaks "
                         "one guided evaluation down, 'iir' (nor this) times "
-                        "one with each IIR degradation")
+                        "one with each IIR degradation, 'gates' (nor this) "
+                        "runs the int8 gate at 3000 training steps")
     a = p.parse_args(argv)
     try:
         import torch
@@ -3300,6 +3962,10 @@ def main(argv=None) -> int:
         phase_check()
     if "requests" in phases:
         phase_requests(results)
+    if "int8modes" in phases:
+        phase_int8modes(results)
+    if "pt" in phases:
+        phase_pt(results)
     if "long" in phases:
         phase_long(results)
     if "train" in phases:
@@ -3312,6 +3978,8 @@ def main(argv=None) -> int:
         phase_capability(results)
     if "iir" in phases:
         phase_iir(results)
+    if "gates" in phases:
+        phase_gates(results)
     if "profile" in phases:
         phase_profile()
     launches = results.get("launches", {})

@@ -20,6 +20,8 @@ from babe_tpu.models.denoiser import MultiStageDenoiser as JDenoiser
 from babe_tpu_torch.config import default_config as tconfig
 from babe_tpu_torch.models.denoiser import MultiStageDenoiser as TDenoiser
 from babe_tpu_torch.models.denoiser import setup_denoiser
+from test_torch_pt_ckpt import reference_state_dict
+
 from babe_tpu_torch.utils.weights import (
     denoiser_from_flax,
     denoiser_to_flax,
@@ -138,11 +140,15 @@ def test_setup_denoiser_loads_ckpt_and_refuses_pt(pair2, tmp_path, capsys):
     x = torch.as_tensor(np.linspace(-0.1, 0.1, 2000, dtype=np.float32))[None]
     torch.testing.assert_close(den.apply_model(x), td.apply_model(x),
                                rtol=0, atol=0)
+    # a reference .pt is no longer refused: it loads the same weights
+    # (tests/test_torch_pt_ckpt.py holds it to the JAX setup_denoiser)
     pt = tmp_path / "den.pt"
-    pt.write_bytes(b"not read")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        setup_denoiser(tconfig(ov + [f"tester.denoiser.checkpoint_path={pt}"]),
-                       device="cpu")
+    torch.save({"network": reference_state_dict(v["params"])}, pt)
+    den_pt = setup_denoiser(
+        tconfig(ov + [f"tester.denoiser.checkpoint_path={pt}"]),
+        device="cpu")
+    torch.testing.assert_close(den_pt.apply_model(x), den.apply_model(x),
+                               rtol=0, atol=0)
     # a missing path warns, as the JAX package does, and keeps a seeded init
     missing = str(tmp_path / "absent.ckpt")
     a = setup_denoiser(tconfig(ov + [

@@ -163,13 +163,18 @@ def test_fused_stage_weight_grad_through_autograd(rng):
 
 
 def test_int8_stage_weight_grad_still_raises(rng):
-    """K3's weight gradient waits for quantization-aware training."""
-    x, w, a, s, _, _ = _stage_case(rng, C=8)
+    """K3's weight gradient, which quantization-aware training takes, is
+    the exact stage's (the JAX ``_fused_i8_bwd``: the vjp of
+    ``_dil_stage_ref``): it no longer raises."""
+    x, w, a, s, gy, gm = _stage_case(rng, C=8)
     qw, sw = tck.quant_weight_per_cout(_t(w))
-    with pytest.raises(NotImplementedError):
-        tck.fused_stage_int8(_t(x), _t(a), _t(s), torch.ones(2),
-                             _t(w).requires_grad_(True),
-                             kernels.tap_major(qw), sw, 1)
+    wt = _t(w).requires_grad_(True)
+    gm3 = np.concatenate([gm, rng.standard_normal((1, *gm.shape[1:]))])
+    bound = np.abs(x * a[:, None, None, :]).max(axis=(1, 2, 3)) * 1.05
+    y, mom = tck.fused_stage_int8(_t(x), _t(a), _t(s), _t(bound), wt,
+                                  kernels.tap_major(qw), sw, 1)
+    torch.autograd.backward((y, mom), (_t(gy), _t(gm3)))
+    _close(wt.grad.numpy(), _jax_stage_dw(x, w, a, s, gy, gm, 1))
 
 
 # ------------------------------------------- the kernels' operands and cut

@@ -112,19 +112,26 @@ def test_conv5x3_bf16_matches_xla(rng):
 
 
 def test_conv5x3_weight_grad_raises(rng):
-    """Only the int8 stage (K3) still raises on a weight that requires
-    grad; K1 now returns the weight gradient (``conv_dw_ref`` on the CPU,
-    held to JAX in test_torch_dw.py)."""
+    """No conv raises on a weight that requires grad any more: K1 returns
+    the weight gradient (``conv_dw_ref`` on the CPU, held to JAX in
+    test_torch_dw.py), and so does the int8 stage (K3: the exact stage's,
+    ``dil_stage_dw_ref``, held to JAX there too)."""
     x = _t(rng.standard_normal((1, 8, 8, 4)))
     w = torch.zeros((5, 3, 4, 4), requires_grad=True)
     g = _t(rng.standard_normal((1, 8, 8, 4)))
     tck.conv5x3_dilated(x, w, 1).backward(g)
     np.testing.assert_array_equal(
         w.grad.numpy(), tck.conv_dw_ref(x, g, (5, 3), (1, 1)).numpy())
+    w.grad = None
     qw, sw = tck.quant_weight_per_cout(w.detach())
-    with pytest.raises(NotImplementedError):
-        tck.fused_stage_int8(x, torch.ones((1, 4)), torch.ones((1, 4)),
-                             torch.ones(1), w, kernels.tap_major(qw), sw, 1)
+    a, s = torch.ones((1, 4)), torch.ones((1, 4))
+    y, mom = tck.fused_stage_int8(x, a, s, torch.ones(1), w,
+                                  kernels.tap_major(qw), sw, 1)
+    y.backward(g)
+    y0 = tck.dil_stage_ref(x, a, s, w.detach(), 1)[0]
+    np.testing.assert_array_equal(
+        w.grad.numpy(), tck.dil_stage_dw_ref(
+            x, a, s, y0, g, torch.zeros((2, 1, 4)), 1).numpy())
 
 
 # ------------------------------------------------------------------- K2
@@ -252,7 +259,9 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing(rng):
                                      "stage_int8_operand", "probe_gemm",
                                      "probe_stage", "dilated_conv",
                                      "conv_dw", "stage_dw_operands",
-                                     "fused_stage_dw"}
+                                     "fused_stage_dw", "conv_int8",
+                                     "act_amax", "act_quant",
+                                     "act_rescale"}
     assert all(n == 0 for n in kernels.LAUNCHES.values())
 
 
