@@ -25,8 +25,10 @@ operand pass ``stage_dw_operands``, which also forms the input of K2's
 backward engine), and the unfused int8 path's: ``conv_int8`` (C8, the
 int8 (5,3) conv with its rescale, ``csrc/conv_int8.cu``: the stage
 engine's int8 loop or a tile, by ``conv_int8_route``) and Q8's per-item
-quantizers ``act_amax`` and ``act_quant`` and the int32 rescale
-``act_rescale`` (``csrc/quant_int8.cu``). Each call's route and cut is
+quantizers ``act_quant_dyn`` (the dynamic amax and the quantize in one
+cooperative launch) and ``act_quant`` (at a given amax), both cut by
+``q8_plan``, and the int32 rescale ``act_rescale``
+(``csrc/quant_int8.cu``). Each call's route and cut is
 made here and passed to the kernel: the GEMM's tiles, chunks and splits by
 ``dw_plan``, K1's route (tiles, narrow in, narrow out) by
 ``conv5x3_route`` and ``conv5x3_plan``, K2's, K2's backward's and K3's (a
@@ -100,17 +102,26 @@ KERNELS = {
     # C8: the unfused int8 (5,3) conv and its rescale
     "conv_int8": ("conv_int8", "babe_conv_int8", [_P] * 6 + [_I] * 7
                   + [_IP, _I, _P]),
-    # Q8: the per-item amax, the quantize at a per-item amax, the rescale
-    # of an int32 product
-    "act_amax": ("quant_int8", "babe_act_amax", [_P, _P, _I, _LL, _I, _P]),
+    # Q8: the dynamic per-item quantization (amax, grid barrier, quantize:
+    # one cooperative launch), the quantize at a given per-item amax, the
+    # rescale of an int32 product
+    "act_quant_dyn": ("quant_int8", "babe_act_quant_dyn", [_P] * 4
+                      + [_I, _LL, _I, _I, _LL, _I, _P]),
     "act_quant": ("quant_int8", "babe_act_quant", [_P] * 4
-                  + [_I, _LL, _I, _P]),
+                  + [_I, _LL, _I, _I, _LL, _I, _P]),
     "act_rescale": ("quant_int8", "babe_act_rescale", [_P] * 3
                     + [_I, _LL, _I, _I, _P]),
+    # act_quant_dyn's resident blocks per SM (not a kernel launch), and its
+    # parts alone (launched only to time them)
+    "q8_slots": ("quant_int8", "babe_act_quant_dyn_slots", [_I]),
+    "q8_part": ("quant_int8", "babe_act_quant_dyn_part", [_P] * 4
+                + [_I, _LL, _I, _I, _LL, _I, _I, _P]),
 }
 SOURCES = tuple(sorted({src for src, _, _ in KERNELS.values()}))
 
-LAUNCHES = {k: 0 for k in KERNELS if k != "dw_slots"}
+# not kernels of a path: the occupancy queries, and Q8's parts alone
+LAUNCHES = {k: 0 for k in KERNELS
+            if k not in ("dw_slots", "q8_slots", "q8_part")}
 # K4's routes (csrc/dilated_conv.cu): the CUDA-core tile, the mma.sync
 # tile, the TMA + wgmma implicit GEMM; its launches by route beside its
 # count in LAUNCHES
@@ -1423,37 +1434,180 @@ def launch_conv_int8(q: torch.Tensor, qwt: torch.Tensor,
     return (out, acc) if want_acc else out
 
 
-def launch_act_amax(x: torch.Tensor) -> torch.Tensor:
-    """Q8's reduction on the card: the per-item max |x| (B,) fp32 of x
-    (B, ...) in fp32 or bf16."""
+# Q8's cut (csrc/quant_int8.cu): 1024 threads a block, 16 elements a
+# step (one 16-byte store of int8), at least one step a thread per unit
+Q8_THREADS = 1024
+Q8_GROUP = 16
+Q8_MIN_CHUNK = Q8_THREADS * Q8_GROUP
+Q8_PARTS = {"scale": 1, "partial": 2}
+
+
+@dataclasses.dataclass(frozen=True)
+class Q8Plan:
+    """Q8's cut of x (B, per_b): each item in ``per_item`` units of
+    ``chunk`` elements (a multiple of Q8_GROUP; an item's last unit
+    shorter), unit u = (item u // per_item, its u % per_item-th chunk);
+    ``grid`` blocks, block k taking units k, k + grid, ... (one each when
+    per_item > 1, where all B * per_item must be resident); ``vec``
+    elements per 16-byte load (the kernel's In<T>::load16, fixed by the
+    dtype)."""
+    B: int
+    per_b: int
+    grid: int
+    per_item: int
+    chunk: int
+    vec: int
+
+    @property
+    def units(self) -> int:
+        return self.B * self.per_item
+
+    def block_units(self, k: int) -> range:
+        return range(k, self.units, self.grid)
+
+    def span(self, u: int) -> tuple[int, int]:
+        """Unit u's elements [lo, hi) of the flattened x."""
+        b, j = divmod(u, self.per_item)
+        lo = j * self.chunk
+        return b * self.per_b + lo, b * self.per_b + min(lo + self.chunk,
+                                                         self.per_b)
+
+
+def q8_plan(B: int, per_b: int, dtype, sms: int,
+            blocks_per_sm: int) -> Q8Plan:
+    """Q8's cut for x (B, per_b) in ``dtype`` on a card of ``sms`` SMs holding
+    ``blocks_per_sm`` of act_quant_dyn's blocks each: the resident
+    blocks shared among the items (no more per item than its elements
+    fill at one step a thread), units of whole 16-element steps; with more
+    items than resident blocks one unit per item, the blocks walking
+    them."""
+    if B <= 0 or per_b <= 0:
+        raise ValueError(f"q8_plan: empty x ({B}, {per_b})")
+    resident = sms * blocks_per_sm
+    if resident <= 0:
+        raise ValueError(f"q8_plan: no resident blocks ({sms} SMs x "
+                         f"{blocks_per_sm})")
+    per_item = max(1, min(resident // B, -(-per_b // Q8_MIN_CHUNK)))
+    per_unit = -(-per_b // per_item)
+    chunk = -(-per_unit // Q8_GROUP) * Q8_GROUP
+    per_item = -(-per_b // chunk)
+    vec = {torch.float32: 4, torch.bfloat16: 8}[dtype]
+    return Q8Plan(B, per_b, min(B * per_item, resident), per_item, chunk,
+                  vec)
+
+
+# per device: (SMs, {dtype: act_quant_dyn's resident blocks per SM}, the
+# partials' workspace); per (device, dtype, B, numel): the plan
+_Q8_STATE: dict = {}
+_Q8_PLANS: dict = {}
+
+
+def q8_prepare(device) -> None:
+    """Ask the card's occupancy for act_quant_dyn in both dtypes and make
+    the partials' workspace (one float per resident block), once per
+    device.  The first Q8 call on a device does it; a CUDA graph capture
+    cannot (its allocations would come from the graph's private pool), so
+    a capture whose first Q8 call it holds raises unless this, or one
+    eager Q8 call, came first.  The workspace serves one stream (or one
+    captured graph) at a time."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device in _Q8_STATE:
+        return
+    per_sm = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        n = _entry("q8_slots")(_DTYPES[dtype])
+        if n <= 0:
+            raise RuntimeError(f"act_quant_dyn: occupancy query failed: "
+                               f"cudaError {-n}")
+        per_sm[dtype] = n
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    partial = torch.empty((sms * max(per_sm.values()),), dtype=torch.float32,
+                          device=device)
+    _Q8_STATE[device] = (sms, per_sm, partial)
+
+
+def _q8_state(device):
+    if device not in _Q8_STATE:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "Q8: the first call on a device inside a CUDA graph "
+                "capture; call kernels.q8_prepare(device) (or one eager "
+                "Q8 call) before capturing")
+        q8_prepare(device)
+    return _Q8_STATE[device]
+
+
+def q8_cut(x: torch.Tensor, name: str = "q8"):
+    """(plan, partials workspace) for x (B, ...) on its card, from
+    ``q8_prepare``'s state; the plan cached per (device, dtype, shape)."""
     if x.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"act_amax: unsupported dtype {x.dtype}")
-    _check(x, "act_amax x")
+        raise ValueError(f"{name}: unsupported dtype {x.dtype}")
+    _check(x, f"{name} x")
+    if x.numel() == 0:
+        raise ValueError(f"{name}: empty x {tuple(x.shape)}")
+    sms, per_sm, partial = _q8_state(x.device)
     B = x.shape[0]
-    amax = torch.zeros((B,), dtype=torch.float32, device=x.device)
-    rc = _entry("act_amax")(x.data_ptr(), amax.data_ptr(), B,
-                            x.numel() // max(B, 1), _DTYPES[x.dtype],
-                            _stream(x))
-    _status("act_amax", rc)
-    LAUNCHES["act_amax"] += 1
-    return amax
+    key = (x.device, x.dtype, B, x.numel())
+    if key not in _Q8_PLANS:
+        _Q8_PLANS[key] = q8_plan(B, x.numel() // B, x.dtype, sms,
+                                 per_sm[x.dtype])
+    return _Q8_PLANS[key], partial
+
+
+def launch_act_quant_dyn(x: torch.Tensor):
+    """Q8's dynamic per-item quantization on the card, one cooperative
+    launch: x (B, ...) fp32 or bf16 -> (q int8 like x, s (B,) fp32) at a =
+    max(max |x[b]|, 1e-20), s = a/127, q = clip(rint(float(x) * (127/a)),
+    +-127) (plain version ``ops/conv_kernels.quant_act_per_item`` on the
+    CPU).  A grid the card cannot hold at once raises."""
+    plan, partial = q8_cut(x, "act_quant_dyn")
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    s = torch.empty((plan.B,), dtype=torch.float32, device=x.device)
+    rc = _entry("act_quant_dyn")(
+        x.data_ptr(), q.data_ptr(), s.data_ptr(), partial.data_ptr(),
+        plan.B, plan.per_b, _DTYPES[x.dtype], plan.per_item, plan.chunk,
+        plan.grid, _stream(x))
+    _status("act_quant_dyn", rc)
+    LAUNCHES["act_quant_dyn"] += 1
+    return q, s
+
+
+def launch_act_quant_dyn_part(x: torch.Tensor, upto: str):
+    """act_quant_dyn stopped early, to time or check its parts (counted
+    nowhere: no path runs it): "scale" (phase 1, the barrier and s; no q)
+    or "partial" (phase 1 alone).  Returns (s, the partials' workspace):
+    after "partial", slot u holds unit u's max (``Q8Plan.span``), or,
+    where blocks walk items (per_item 1, B > grid), slot k block k's last
+    item's."""
+    if upto not in Q8_PARTS:
+        raise ValueError(f"act_quant_dyn part: {upto!r} is not one of "
+                         f"{sorted(Q8_PARTS)}")
+    plan, partial = q8_cut(x, "act_quant_dyn part")
+    s = torch.empty((plan.B,), dtype=torch.float32, device=x.device)
+    rc = _entry("q8_part")(
+        x.data_ptr(), None, s.data_ptr(), partial.data_ptr(), plan.B,
+        plan.per_b, _DTYPES[x.dtype], plan.per_item, plan.chunk, plan.grid,
+        Q8_PARTS[upto], _stream(x))
+    _status("act_quant_dyn part", rc)
+    return s, partial
 
 
 def launch_act_quant(x: torch.Tensor, amax: torch.Tensor):
     """Q8's quantizer on the card: x (B, ...) fp32 or bf16 at the per-item
     amax (B,) fp32 -> (q int8 like x, s (B,) fp32), a = max(amax, 1e-20),
-    s = a/127, q = clip(rint(float(x) * (127/a)), +-127) (plain version
-    ``ops/conv_kernels.quant_act_ref``)."""
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"act_quant: unsupported dtype {x.dtype}")
-    _check(x, "act_quant x")
-    B = x.shape[0]
-    _check(amax, "act_quant amax", torch.float32, (B,))
+    s = a/127, q = clip(rint(float(x) * (127 / a)), +-127) (plain version
+    ``ops/conv_kernels.quant_act_ref``); act_quant_dyn's phase 2 on its
+    cut."""
+    plan, _ = q8_cut(x, "act_quant")
+    _check(amax, "act_quant amax", torch.float32, (plan.B,))
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
-    s = torch.empty((B,), dtype=torch.float32, device=x.device)
+    s = torch.empty((plan.B,), dtype=torch.float32, device=x.device)
     rc = _entry("act_quant")(x.data_ptr(), amax.data_ptr(), q.data_ptr(),
-                             s.data_ptr(), B, x.numel() // max(B, 1),
-                             _DTYPES[x.dtype], _stream(x))
+                             s.data_ptr(), plan.B, plan.per_b,
+                             _DTYPES[x.dtype], plan.per_item, plan.chunk,
+                             plan.grid, _stream(x))
     _status("act_quant", rc)
     LAUNCHES["act_quant"] += 1
     return q, s

@@ -42,7 +42,8 @@ Counterpart of ``babe_tpu/ops/conv_kernels.py``.  Layout is channels-last
     analytic bound known before the activation), the kernel per output
     channel; the int8 products accumulate in int32 and are rescaled by
     s_x[b] * s_w[n] into the input's dtype.  On CUDA the quantizers are
-    Q8 (``csrc/quant_int8.cu``: ``act_amax``, ``act_quant``), the (5,3)
+    Q8 (``csrc/quant_int8.cu``: ``act_quant_dyn``, the dynamic amax and
+    quantize in one launch, and ``act_quant`` at a bound), the (5,3)
     conv C8 (``csrc/conv_int8.cu``, ``conv_int8``: the stage engine's int8
     loop or a tile, with the rescale in its epilogue) and the 1x1 product
     ``torch._int_mm`` (P1's GEMM at the shapes it does not take) rescaled
@@ -659,10 +660,9 @@ def quant_act_with_scale(x: torch.Tensor, amax: torch.Tensor):
 def quant_act_per_item(x: torch.Tensor):
     """(B, ...) -> (int8 q, fp32 scale (B,)) at the per-item dynamic amax
     over every other axis (JAX ``_quant_act_per_item``).  On CUDA Q8's
-    ``act_amax`` then ``act_quant``."""
+    ``act_quant_dyn``, one launch."""
     if x.is_cuda:
-        x = x.contiguous()
-        return _k.launch_act_quant(x, _k.launch_act_amax(x))
+        return _k.launch_act_quant_dyn(x.contiguous())
     amax = x.float().abs().amax(dim=tuple(range(1, x.ndim)))
     return quant_act_with_scale(x, amax)
 

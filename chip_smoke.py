@@ -64,10 +64,17 @@ Phases (any failure exits non-zero; no phase catches and carries on):
                 its time, its bound, the plain version's time and a cuDNN
                 yardstick (a conv, or its weight gradient; bf16 for K3: no
                 PyTorch call computes an int8 conv); C8 (conv_int8) and Q8
-                (act_amax, act_quant) at every int8 stage shape (C >= 96)
-                at batch 1 and 4, as the stage's forward and as its int8
-                input gradient, bit-equal to their plain versions (q, the
-                scales, the int32 accumulator, the output).
+                (act_quant_dyn, act_quant) at every int8 stage shape (C >=
+                96) at batch 1 and 4, as the stage's forward and as its
+                int8 input gradient, bit-equal to their plain versions (q,
+                the scales, the int32 accumulator, the output); Q8 also in
+                fp32 at batch 4, with the per-item amax of act_quant_dyn's
+                phase 1, and at its edge cases (Q8_EDGE), timed at batch 1
+                through its launchers and as device time in CUDA graphs
+                with the L2 flushed, each launcher call one device kernel
+                (torch.profiler), its first call in a graph capture
+                refused and, after kernels.q8_prepare, captured and
+                replayed bit-equal; Q8's seconds logged.
   3. probe      the int8 probe's kernels (P1 GEMM, P2 stage core on the
                 stage engine's loop) against their plain versions (int8
                 bit-exact), P1 also at the edge shapes GEMM_EDGE and
@@ -162,6 +169,10 @@ Phases (any failure exits non-zero; no phase catches and carries on):
   iir           (not by default) one guided evaluation of informed BWE at
                 the flagship with the firwin, cheby1 and biquad
                 degradations, and the IIR recursion alone, timed.
+  q8            (not by default) Q8 alone: the kernels phase's Q8 checks
+                and times, then act_quant_dyn's phase 1 alone and with its
+                barrier, both kernels with the L2 warm, and at batch 4
+                (QAT's shape, beyond the L2), as device time.
   gates         (not by default) the capability tool at 3000 steps over
                 two trainings, each checkpoint through quality_int8 in the
                 fused chain and in the JAX tool's configuration (the
@@ -221,7 +232,7 @@ REPLACES = {
     "conv_int8": "babe_tpu/ops/conv_kernels.py:179",
     # no Pallas kernel: the XLA fusions of the per-item quantizers and of
     # the int8 1x1's rescale
-    "act_amax": "babe_tpu/ops/conv_kernels.py:126",
+    "act_quant_dyn": "babe_tpu/ops/conv_kernels.py:126",
     "act_quant": "babe_tpu/ops/conv_kernels.py:137",
     "act_rescale": "babe_tpu/ops/conv_kernels.py:305",
 }
@@ -240,7 +251,7 @@ SOURCES = {
     "stage_dw_operands": "babe_tpu_torch/csrc/conv_dw.cu",
     "fused_stage_dw": "babe_tpu_torch/csrc/conv_dw.cu",
     "conv_int8": "babe_tpu_torch/csrc/conv_int8.cu",
-    "act_amax": "babe_tpu_torch/csrc/quant_int8.cu",
+    "act_quant_dyn": "babe_tpu_torch/csrc/quant_int8.cu",
     "act_quant": "babe_tpu_torch/csrc/quant_int8.cu",
     "act_rescale": "babe_tpu_torch/csrc/quant_int8.cu",
 }
@@ -296,15 +307,22 @@ PER = {
                  "1: each int8 stage's forward and its int8 input gradient; "
                  "library_ms is a bf16 cuDNN conv (no PyTorch call computes "
                  "an int8 conv)",
-    "act_amax": "one guided evaluation in the JAX API's int8: the int8 "
-                "input gradients' per-item amax; library_ms is "
-                "torch.linalg.vector_norm(ord=inf)",
-    "act_quant": "one guided evaluation in the JAX API's int8: each int8 "
-                 "stage's hinted quantize and its cotangent's; no PyTorch "
-                 "call computes it",
+    "act_quant_dyn": "one guided evaluation in the JAX API's int8: the 68 "
+                     "int8 input gradients' dynamic quantizations; ms is "
+                     "device time (CUDA graph, L2 flushed before each), "
+                     "eager_ms through the launcher; library_ms is "
+                     "torch.linalg.vector_norm(ord=inf) plus "
+                     "torch.quantize_per_channel (no one PyTorch call "
+                     "computes it; a yardstick of time only)",
+    "act_quant": "one guided evaluation in the JAX API's int8: the 68 int8 "
+                 "stages' hinted quantizes; ms is device time (CUDA graph, "
+                 "L2 flushed before each), eager_ms through the launcher; "
+                 "library_ms is torch.quantize_per_channel (axis 0, zero "
+                 "points 0, on x in fp32: it takes no bf16; it divides by s "
+                 "and clamps at -128, a yardstick of time only)",
     "act_rescale": "one guided evaluation under BABE_INT8_SCALE=amax "
-                   "BABE_INT8_OPS=all: the int8 1x1s' rescales; no PyTorch "
-                   "call computes it",
+                   "BABE_INT8_OPS=all: the int8 1x1s' rescales; library_ms "
+                   "is torch.mul(acc, scale) to fp32",
 }
 # where each kernel's launch count comes from
 LAUNCHES_FROM = {
@@ -320,7 +338,7 @@ LAUNCHES_FROM = {
     "stage_dw_operands": "the train phase (all its steps)",
     "fused_stage_dw": "the train phase (all its steps)",
     "conv_int8": "the JAX API's int8 request (int8modes)",
-    "act_amax": "the JAX API's int8 request (int8modes)",
+    "act_quant_dyn": "the JAX API's int8 request (int8modes)",
     "act_quant": "the JAX API's int8 request (int8modes)",
     "act_rescale": "the amax, all-ops int8 request (int8modes)",
 }
@@ -338,14 +356,16 @@ BF16_PATH = ("conv5x3", "fused_stage", "stage_fwd_operand",
              "fused_stage_bwd", "filter_fit", "stage_dw_operands")
 INT8_PATH = BF16_PATH + ("fused_stage_int8", "stage_int8_operand")
 PROBE_PATH = ("probe_gemm", "probe_stage")
-# the unfused int8 path's kernels: the JAX API's int8 request launches the
-# first three, the amax, all-ops one all four
-C8_PATH = ("conv_int8", "act_amax", "act_quant")
+# the unfused int8 path's kernels: the JAX API's int8 request launches
+# these three (act_quant_dyn on the int8 input gradients, act_quant on the
+# hinted forwards); the amax, all-ops one has no hint, and its 1x1s add
+# the rescale
+C8_PATH = ("conv_int8", "act_quant_dyn", "act_quant")
 INT8_MODES = (
     ("JAX API int8", {"BABE_INT8_FUSED": "0", "BABE_INT8_BWD": "1"},
      C8_PATH),
     ("amax, all ops", {"BABE_INT8_SCALE": "amax", "BABE_INT8_OPS": "all"},
-     C8_PATH + ("act_rescale",)),
+     ("conv_int8", "act_quant_dyn", "act_rescale")),
 )
 
 
@@ -444,6 +464,15 @@ def flagship_shapes(cqt, Ns, num_dils):
 # ------------------------------------------------------------------ phases
 
 
+def _flagship_level_shapes():
+    """``flagship_shapes`` of the flagship (7 octaves, 64 bins, 184184
+    samples at 22.05 kHz; widths and dilations of its levels)."""
+    from babe_tpu_torch.ops.cqt import get_cqt
+
+    Ns, num_dils = (64, 96, 96, 128, 128, 256, 256), (2, 3, 4, 5, 6, 7, 7)
+    return flagship_shapes(get_cqt(7, 64, 22050.0, 184184), Ns, num_dils)
+
+
 def phase_identify(kernels):
     import torch
 
@@ -472,14 +501,11 @@ def phase_kernels(results: dict):
 
     from babe_tpu_torch import kernels
     from babe_tpu_torch.ops import conv_kernels as ck
-    from babe_tpu_torch.ops.cqt import get_cqt
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    Ns, num_dils = (64, 96, 96, 128, 128, 256, 256), (2, 3, 4, 5, 6, 7, 7)
-    k2_shapes, k1_shapes = flagship_shapes(get_cqt(7, 64, 22050.0, 184184),
-                                           Ns, num_dils)
+    k2_shapes, k1_shapes = _flagship_level_shapes()
     g = torch.Generator(device=dev).manual_seed(0)
     g8 = torch.Generator(device=dev).manual_seed(8)  # K3's own stream
     g9 = torch.Generator(device=dev).manual_seed(9)  # the edge shapes' own
@@ -633,7 +659,7 @@ def phase_kernels(results: dict):
     for dtype in (torch.bfloat16, torch.float32):
         ok &= _stage_fwd_edges(dtype, g9)
     ok &= _kernel_int8_convs({k: c for k, c in k2_shapes.items()
-                              if k[2] >= 96}, account, library_conv)
+                              if k[2] >= 96}, account, library_conv, agg)
     ok &= _k2_fp32_evidence(k2_shapes)
     _engine_digests()
     ok &= _kernel_filter_fit(agg["filter_fit"])
@@ -641,7 +667,7 @@ def phase_kernels(results: dict):
     ok &= _kernel_dw(account, k1_shapes, k2_shapes)
     ok &= _tiny_net_checks()
     for name in ("stage_dw_operands", "stage_fwd_operand",
-                 "stage_int8_operand", "act_quant"):
+                 "stage_int8_operand"):
         agg[name]["library_ms"] = None
     del agg["act_rescale"]  # measured at the 1x1 shapes in int8modes
     for name, a in agg.items():
@@ -663,18 +689,18 @@ def phase_kernels(results: dict):
                            f"beyond the stated tolerance {TOL}")
 
 
-def _kernel_int8_convs(shapes, account, library_conv) -> bool:
-    """C8 (``conv_int8``) and Q8 (``act_amax``, ``act_quant``) against
+def _kernel_int8_convs(shapes, account, library_conv, agg) -> bool:
+    """C8 (``conv_int8``) and Q8 (``act_quant_dyn``, ``act_quant``) against
     their plain versions at every flagship int8 stage shape (C >= 96, the
     JAX API's int8 convs) at batch 1 and 4, in the two roles a guided
     evaluation gives them: the stage's forward (a bf16 activation quantized
-    at its hint, the stage's kernel) and its int8 input gradient (a bf16
-    cotangent at its dynamic amax, the flipped, io-swapped kernel), bf16
-    out; fp32 out at batch 1.  The amax, q, the scales, the int32
-    accumulator and the output must equal the plain version's bit for bit.
-    At batch 1 in bf16 it times each kernel, the plain versions, and the
-    yardsticks (a bf16 cuDNN conv; torch.linalg.vector_norm for the
-    amax)."""
+    at its hint by ``act_quant``, the stage's kernel) and its int8 input
+    gradient (a bf16 cotangent at its dynamic amax, ``act_quant_dyn``, the
+    flipped, io-swapped kernel), bf16 out; fp32 out at batch 1.  q, the
+    scales, the int32 accumulator and the output must equal the plain
+    version's bit for bit.  At batch 1 in bf16 it times C8, its plain
+    version and its yardstick (a bf16 cuDNN conv); then Q8 on its own
+    (``_kernel_q8``)."""
     import torch
 
     from babe_tpu_torch import kernels
@@ -695,12 +721,12 @@ def _kernel_int8_convs(shapes, account, library_conv) -> bool:
             bound = 1.02 * h.float().abs().amax((1, 2, 3))
             line, good = [], True
             for role, x, wk in (("fwd", h, w), ("dx", gy, ck._flip_io(w))):
-                amax = bound
                 if role == "dx":
-                    amax = kernels.launch_act_amax(x)
-                    ra = x.float().abs().amax((1, 2, 3))
-                    good &= bool(torch.equal(amax, ra))
-                q, sx = kernels.launch_act_quant(x, amax)
+                    amax = x.float().abs().amax((1, 2, 3))
+                    q, sx = kernels.launch_act_quant_dyn(x)
+                else:
+                    amax = bound
+                    q, sx = kernels.launch_act_quant(x, amax)
                 rq, rs = ck.quant_act_ref(x, amax)
                 qw, sw = ck.quant_weight_per_cout(wk)
                 qwt = kernels.tap_major(qw)
@@ -739,32 +765,344 @@ def _kernel_int8_convs(shapes, account, library_conv) -> bool:
                              f"plain={t_p:.4f} cudnn(bf16)={t_l:.4f}")
                 account("conv_int8", count, dtype, t_k, t_p, t_l, flops,
                         nbytes, e, op_dtype=torch.int8)
-                # Q8: x read once, q written (the amax: x read), a few
-                # fp32 operations per element
-                t_q = cuda_time(lambda: kernels.launch_act_quant(x, amax))
-                t_qp = cuda_time(lambda: ck.quant_act_ref(x, amax),
-                                 reps=2)
-                q_bytes = F * T * C * 3 + 8
-                line[-1] += f"; quant ms={t_q:.4f} plain={t_qp:.4f}"
-                account("act_quant", count, dtype, t_q, t_qp, 0.0,
-                        4.0 * F * T * C, q_bytes, (0.0, 0.0, 0.0),
-                        op_dtype=torch.float32)
-                if role == "dx":
-                    flat = x.view(B, -1)
-                    t_a = cuda_time(lambda: kernels.launch_act_amax(x))
-                    t_ap = cuda_time(
-                        lambda: x.float().abs().amax((1, 2, 3)), reps=2)
-                    t_al = cuda_time(lambda: torch.linalg.vector_norm(
-                        flat, float("inf"), dim=1))
-                    line[-1] += (f"; amax ms={t_a:.4f} plain={t_ap:.4f} "
-                                 f"vector_norm={t_al:.4f}")
-                    account("act_amax", count, dtype, t_a, t_ap, t_al,
-                            1.0 * F * T * C, F * T * C * 2 + 4,
-                            (0.0, 0.0, 0.0), op_dtype=torch.float32)
             ok &= good
             log(f"C8/Q8 {dn:8s} B={B} F={F:3d} T={T:4d} C={C:3d} d={d:2d} "
                 f"x{count}: {'; '.join(line)} {'ok' if good else 'FAIL'}")
+    return ok & _kernel_q8(shapes, account, agg)
+
+
+# Q8's edge cases (B, per_b, per-item scales): an all-zero item, per-item
+# amaxes a factor of 1e6 apart on a per_b that is not a multiple of 16, a
+# per_b under one step, more items than any grid (blocks walk items) and
+# items too short to share; each also on a view offset by one element (not
+# 16-byte aligned), in bf16 and fp32; "ties": every value k + 0.5 after
+# scaling (amax 127), rounded half to even
+Q8_EDGE = [(2, 77777, (1.0, 0.0)), (3, 1001, (1e-3, 1.0, 1e3)),
+           (1, 5, (1.0,)), (3000, 1000, None), (300, 4096, None),
+           (2, 4099, "ties")]
+Q8_REPS = 20  # launches per CUDA graph when timing Q8
+
+
+def _q8_amax(kernels, x):
+    """act_quant_dyn's phase 1 alone on x: the per-item amax from its
+    partials (each unit's max), or None where the blocks walk items (a
+    block keeps only its last item's)."""
+    plan = kernels.q8_cut(x)[0]
+    _, partial = kernels.launch_act_quant_dyn_part(x, "partial")
+    if plan.per_item == 1 and plan.B > plan.grid:
+        return None
+    return partial[:plan.units].view(plan.B, plan.per_item).amax(1)
+
+
+def _q8_check(kernels, ck, x, bound) -> dict:
+    """act_quant_dyn and act_quant (at ``bound``) on x against the plain
+    version: q, s and the per-item amax bit for bit (no "amax" where the
+    blocks walk items: their phase 1 keeps no per-item partial)."""
+    import torch
+
+    amax = x.float().abs().amax(dim=tuple(range(1, x.ndim)))
+    q, s = kernels.launch_act_quant_dyn(x)
+    rq, rs = ck.quant_act_ref(x, amax)
+    pa = _q8_amax(kernels, x)
+    hq, hs = kernels.launch_act_quant(x, bound)
+    hrq, hrs = ck.quant_act_ref(x, bound)
+    torch.cuda.synchronize()
+    eq = {"dyn q": torch.equal(q, rq), "dyn s": torch.equal(s, rs)}
+    if pa is not None:
+        eq["amax"] = torch.equal(pa, amax)
+    eq.update({"hinted q": torch.equal(hq, hrq),
+               "hinted s": torch.equal(hs, hrs)})
+    return eq
+
+
+def _q8_eq_text(eq: dict) -> str:
+    good = all(eq.values())
+    return (f"bit-equal {'/'.join(k for k, v in eq.items() if v)}"
+            + ("" if "amax" in eq else " (amax not read: blocks walk items)")
+            + f" {'ok' if good else 'FAIL'}")
+
+
+def _one_device_kernel(fn, name: str) -> str:
+    """The device kernels of one ``fn()`` under torch.profiler: exactly one,
+    named ``name``, or it raises."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = [(e.key, e.count) for e in prof.key_averages()
+            if getattr(e, "device_type", None)
+            == torch.autograd.DeviceType.CUDA]
+    if len(kern) != 1 or kern[0][1] != 1 or f"::{name}<" not in kern[0][0]:
+        raise RuntimeError(f"one {name} call ran the device kernels {kern}, "
+                           f"not one {name}")
+    return kern[0][0].split("(")[0]
+
+
+def _q8_fresh_capture(kernels, ck, x) -> bool:
+    """With Q8's per-device state dropped (as in a fresh process): a first
+    act_quant_dyn call inside a CUDA graph capture raises (its workspace is
+    made outside any capture); after ``kernels.q8_prepare`` the kernel
+    captures as a cooperative node and its replay is bit-equal to the plain
+    version."""
+    import torch
+
+    kernels._Q8_STATE.clear()
+    kernels._Q8_PLANS.clear()
+    refused = False
+    try:
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            kernels.launch_act_quant_dyn(x)
+    except RuntimeError as e:
+        refused = "q8_prepare" in str(e)
+    kernels.q8_prepare(x.device)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        q, s = kernels.launch_act_quant_dyn(x)
+    q.zero_()
+    graph.replay()
+    rq, rs = ck.quant_act_ref(x, x.float().abs().amax(
+        dim=tuple(range(1, x.ndim))))
+    torch.cuda.synchronize()
+    same = torch.equal(q, rq) and torch.equal(s, rs)
+    log(f"Q8 graph capture from a fresh state: first call refused "
+        f"{refused}; after q8_prepare captured and replayed bit-equal "
+        f"{same} {'ok' if refused and same else 'FAIL'}")
+    return refused and same
+
+
+def _flushed_ms(fn, flush_buf) -> float:
+    """Device ms of one ``fn()`` in a CUDA graph of Q8_REPS launches, each
+    after a read of ``flush_buf`` (the L2 flushed), that read's own graph
+    time subtracted."""
+    from babe_tpu_torch.tools.probe_int8 import device_ms
+
+    t_f = device_ms(lambda: flush_buf.amax(), Q8_REPS)
+    both = device_ms(lambda: (flush_buf.amax(), fn()), Q8_REPS)
+    return both - t_f
+
+
+def _q8_sizes(shapes) -> dict:
+    """Distinct int8 stage tensors (F, T, C) with the launches per guided
+    evaluation (Q8's work depends on F*T*C alone; the count sums the
+    stages' dilations)."""
+    sizes: dict = {}
+    for (F, T, C, _), count in shapes.items():
+        sizes[F, T, C] = sizes.get((F, T, C), 0) + count
+    return sizes
+
+
+def _kernel_q8(shapes, account, agg) -> bool:
+    """Q8 on its own.  Bit-equality (q, s and act_quant_dyn's per-item
+    amax; act_quant at a bound 2% over the amax) at every distinct int8
+    stage tensor (F, T, C) at batch 1 and 4 in bf16 and fp32, and at
+    Q8_EDGE.  One launcher call is one device kernel (torch.profiler); a
+    first call inside a graph capture raises, and after q8_prepare the
+    kernel captures and replays bit-equal (``_q8_fresh_capture``).  At
+    batch 1 in bf16, per distinct tensor: each kernel through its launcher
+    (CUDA events, eager) and as device time in a CUDA graph of Q8_REPS
+    launches with the L2 flushed before each (``_flushed_ms``); the plain
+    versions; the yardsticks (torch.linalg.vector_norm(ord=inf) for the
+    amax, torch.quantize_per_channel for the quantize).  The breakdown
+    into parts, warm times and batch 4's times are ``--phases q8``'s
+    (``_q8_parts``).  Logs the seconds it takes."""
+    import torch
+
+    from babe_tpu_torch import kernels
+    from babe_tpu_torch.ops import conv_kernels as ck
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(89)
+    ok = True
+    flush_buf = torch.ones(2**25, dtype=torch.float32, device=dev)
+    sums = {k: 0.0 for k in ("dyn eager", "dyn", "hinted eager", "hinted",
+                             "vector_norm", "quantize_per_channel",
+                             "bound")}
+    t_time = 0.0
+    for (F, T, C), count in sorted(_q8_sizes(shapes).items()):
+        for B in (1, 4):
+            for dtype in (torch.bfloat16, torch.float32):
+                dn = str(dtype).split(".")[-1]
+                x = torch.randn((B, F, T, C), generator=g,
+                                device=dev).to(dtype)
+                bound = 1.02 * x.float().abs().amax((1, 2, 3))
+                eq = _q8_check(kernels, ck, x, bound)
+                ok &= all(eq.values())
+                plan = kernels.q8_cut(x)[0]
+                line = (f"Q8 {dn:8s} B={B} F={F:3d} T={T:4d} C={C:3d} "
+                        f"x{count}: grid {plan.grid}, {plan.per_item} per "
+                        f"item, chunk {plan.chunk}; {_q8_eq_text(eq)}")
+                if dtype == torch.bfloat16 and B == 1:
+                    t1 = time.perf_counter()
+                    n = B * F * T * C
+                    nbytes = n * (x.element_size() + 1) + 4 * B
+                    b, by = bound_ms(3.0 * n, nbytes, torch.float32)
+                    r = {"dyn eager": cuda_time(
+                            lambda: kernels.launch_act_quant_dyn(x),
+                            reps=Q8_REPS),
+                         "dyn": _flushed_ms(
+                            lambda: kernels.launch_act_quant_dyn(x),
+                            flush_buf),
+                         "hinted eager": cuda_time(
+                            lambda: kernels.launch_act_quant(x, bound),
+                            reps=Q8_REPS),
+                         "hinted": _flushed_ms(
+                            lambda: kernels.launch_act_quant(x, bound),
+                            flush_buf)}
+                    flat = x.view(B, -1)
+                    r["vector_norm"] = cuda_time(
+                        lambda: torch.linalg.vector_norm(
+                            flat, float("inf"), dim=1), reps=Q8_REPS)
+                    # it takes fp32 only: x converted beforehand
+                    flat32, sc = flat.float(), bound / 127
+                    zp = torch.zeros((B,), dtype=torch.int64, device=dev)
+                    r["quantize_per_channel"] = cuda_time(
+                        lambda: torch.quantize_per_channel(
+                            flat32, sc, zp, 0, torch.qint8), reps=Q8_REPS)
+                    t_pd = cuda_time(lambda: ck.quant_act_ref(
+                        x, x.float().abs().amax((1, 2, 3))), reps=2)
+                    t_ph = cuda_time(lambda: ck.quant_act_ref(x, bound),
+                                     reps=2)
+                    for k, v in r.items():
+                        sums[k] += count * v
+                    sums["bound"] += count * b
+                    zero = (0.0, 0.0, 0.0)
+                    account("act_quant_dyn", count, dtype, r["dyn"], t_pd,
+                            r["vector_norm"] + r["quantize_per_channel"],
+                            3.0 * n, nbytes, zero, op_dtype=torch.float32)
+                    account("act_quant", count, dtype, r["hinted"], t_ph,
+                            r["quantize_per_channel"], 3.0 * n, nbytes,
+                            zero, op_dtype=torch.float32)
+                    for name, k in (("act_quant_dyn", "dyn eager"),
+                                    ("act_quant", "hinted eager")):
+                        agg[name]["eager_ms"] = agg[name].get(
+                            "eager_ms", 0.0) + count * r[k]
+                    line += (f" | bound={b:.5f}({by}) "
+                             + " ".join(f"{k}={v:.5f}" for k, v in r.items())
+                             + f" plain dyn={t_pd:.4f} hinted={t_ph:.4f}")
+                    t_time += time.perf_counter() - t1
+                log(line)
+    t_edge = time.perf_counter()
+    for B, per_b, scales in Q8_EDGE:
+        for dtype in (torch.bfloat16, torch.float32):
+            for off in (0, 1):
+                buf = torch.randn(B * per_b + off, generator=g, device=dev)
+                x = buf[off:].view(B, per_b)
+                if scales == "ties":
+                    x.copy_(torch.randint(-253, 254, (B, per_b), generator=g,
+                                          device=dev) / 2.0)
+                    x[:, 0] = 127.0
+                elif scales is not None:
+                    x.mul_(torch.tensor(scales, device=dev)[:, None])
+                buf = buf.to(dtype)
+                x = buf[off:].view(B, per_b)
+                bound = 1.02 * x.float().abs().amax(1)
+                if scales == "ties":
+                    bound = x.float().abs().amax(1)
+                eq = _q8_check(kernels, ck, x, bound)
+                ok &= all(eq.values())
+                plan = kernels.q8_cut(x)[0]
+                log(f"Q8 edge {str(dtype).split('.')[-1]:8s} ({B}, {per_b}) "
+                    f"scales {scales} offset {off}: grid {plan.grid}, "
+                    f"{plan.per_item} per item, chunk {plan.chunk}; "
+                    f"{_q8_eq_text(eq)}")
+    t_prof = time.perf_counter()
+    x = torch.randn((1, 128, 1024, 96), generator=g, device=dev).bfloat16()
+    bound = 1.02 * x.float().abs().amax((1, 2, 3))
+    names = [_one_device_kernel(lambda: kernels.launch_act_quant_dyn(x),
+                                "act_quant_dyn"),
+             _one_device_kernel(lambda: kernels.launch_act_quant(x, bound),
+                                "act_quant")]
+    log(f"Q8: one launcher call, one device kernel: {names}")
+    ok &= _q8_fresh_capture(kernels, ck, x)
+    t_end = time.perf_counter()
+    log("Q8 per guided evaluation (bf16, batch 1, 68 of each; ms): "
+        + " ".join(f"{k}={v:.4f}" for k, v in sums.items()))
+    log(f"Q8: {t_end - t0:.1f} s (checks at the stage tensors "
+        f"{t_edge - t0 - t_time:.1f} s, their times {t_time:.1f} s, edge "
+        f"cases {t_prof - t_edge:.1f} s, profiler and capture "
+        f"{t_end - t_prof:.1f} s)")
     return ok
+
+
+def _q8_parts(shapes) -> None:
+    """act_quant_dyn's parts and the times the kernels phase leaves out,
+    per distinct int8 stage tensor, device time in CUDA graphs of Q8_REPS
+    launches: at batch 1 in bf16 phase 1 alone and phase 1 with its
+    barrier (the L2 flushed), and each kernel with the L2 warm (the same x
+    each launch); at batch 4 (QAT's shape, beyond the L2) each kernel with
+    the L2 flushed.  Logged, with their sums per guided evaluation."""
+    import torch
+
+    from babe_tpu_torch import kernels
+    from babe_tpu_torch.tools.probe_int8 import device_ms
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(90)
+    flush_buf = torch.ones(2**25, dtype=torch.float32, device=dev)
+    sums = {k: 0.0 for k in ("phase1", "phase1+barrier", "dyn warm",
+                             "hinted warm", "dyn B4", "hinted B4",
+                             "bound B4")}
+    for (F, T, C), count in sorted(_q8_sizes(shapes).items()):
+        x = torch.randn((1, F, T, C), generator=g, device=dev).bfloat16()
+        bound = 1.02 * x.float().abs().amax((1, 2, 3))
+        r = {"phase1": _flushed_ms(
+                lambda: kernels.launch_act_quant_dyn_part(x, "partial"),
+                flush_buf),
+             "phase1+barrier": _flushed_ms(
+                lambda: kernels.launch_act_quant_dyn_part(x, "scale"),
+                flush_buf),
+             "dyn warm": device_ms(lambda: kernels.launch_act_quant_dyn(x),
+                                   Q8_REPS),
+             "hinted warm": device_ms(
+                lambda: kernels.launch_act_quant(x, bound), Q8_REPS)}
+        x4 = torch.randn((4, F, T, C), generator=g, device=dev).bfloat16()
+        bound4 = 1.02 * x4.float().abs().amax((1, 2, 3))
+        r["dyn B4"] = _flushed_ms(lambda: kernels.launch_act_quant_dyn(x4),
+                                  flush_buf)
+        r["hinted B4"] = _flushed_ms(
+            lambda: kernels.launch_act_quant(x4, bound4), flush_buf)
+        r["bound B4"] = bound_ms(3.0 * x4.numel(), 3.0 * x4.numel() + 16,
+                                 torch.float32)[0]
+        for k, v in r.items():
+            sums[k] += count * v
+        log(f"Q8 parts bfloat16 F={F:3d} T={T:4d} C={C:3d} x{count} "
+            f"(device ms): " + " ".join(f"{k}={v:.5f}" for k, v in r.items()))
+    log("Q8 parts per guided evaluation (bf16, 68 of each; ms): "
+        + " ".join(f"{k}={v:.4f}" for k, v in sums.items())
+        + f"; barrier = phase1+barrier - phase1 = "
+          f"{sums['phase1+barrier'] - sums['phase1']:.4f}")
+
+
+def phase_q8(results: dict):
+    """(not by default) Q8 alone: ``_kernel_q8`` as the kernels phase runs
+    it (its checks and times), then its parts (``_q8_parts``)."""
+    import torch
+
+    t0 = time.perf_counter()
+    shapes = {k: c for k, c in _flagship_level_shapes()[0].items()
+              if k[2] >= 96}
+    agg = {name: {"ms": 0.0, "bound_ms": 0.0}
+           for name in ("act_quant_dyn", "act_quant")}
+
+    def account(name, count, dtype, t_k, t_p, t_l, flops, nbytes, e,
+                op_dtype=None):
+        if dtype == torch.bfloat16:
+            agg[name]["ms"] += count * t_k
+            agg[name]["bound_ms"] += count * bound_ms(flops, nbytes,
+                                                      op_dtype)[0]
+
+    ok = _kernel_q8(shapes, account, agg)
+    log(f"Q8 (q8 phase): {agg}")
+    _q8_parts(shapes)
+    log(f"q8: {time.perf_counter() - t0:.1f} s")
+    if not ok:
+        raise RuntimeError("Q8 disagrees with its plain version")
 
 
 K1_ROUTES = ("tile", "narrow in", "narrow out")
@@ -2754,7 +3092,7 @@ def _rescale_checks(shapes, results) -> None:
     from babe_tpu_torch.ops import conv_kernels as ck
 
     g = torch.Generator(device="cuda").manual_seed(77)
-    a = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": None,
+    a = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
          "max_abs_err": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0, "shapes": 0}
     for (B, F, T, N), count in sorted(shapes.items()):
         acc = torch.randint(-2**24, 2**24, (B, F, T, N), generator=g,
@@ -2773,19 +3111,23 @@ def _rescale_checks(shapes, results) -> None:
             acc, sc, torch.bfloat16))
         t_p = cuda_time(lambda: ck.int8_rescale_ref(acc, sx, sw,
                                                     torch.bfloat16), reps=2)
+        # the yardstick: one PyTorch call, its output fp32
+        t_l = cuda_time(lambda: torch.mul(acc, sc.view(B, 1, 1, N)))
         n = B * F * T * N
         b, by = bound_ms(n, 6.0 * n, torch.float32)
         a["ms"] += count * t_k
         a["plain_ms"] += count * t_p
+        a["library_ms"] += count * t_l
         a["bound_ms"] += count * b
         a["ops_ms"] += count * bound_ms(n, 0.0, torch.float32)[0]
         a["bytes_ms"] += count * 1e3 * 6.0 * n / HBM_BPS
         a["shapes"] += 1
         log(f"act_rescale B={B} F={F:3d} T={T:4d} N={N:3d} x{count}: "
-            f"bit-equal ms={t_k:.4f} bound={b:.4f}({by}) plain={t_p:.4f}")
+            f"bit-equal ms={t_k:.4f} bound={b:.4f}({by}) plain={t_p:.4f} "
+            f"torch.mul={t_l:.4f}")
     log(f"act_rescale: per guided evaluation (amax, all ops; bf16) "
         f"ms={a['ms']:.3f} bound_ms={a['bound_ms']:.3f} "
-        f"plain_ms={a['plain_ms']:.3f}")
+        f"plain_ms={a['plain_ms']:.3f} library_ms={a['library_ms']:.3f}")
     results["act_rescale"] = a
 
 
@@ -2882,10 +3224,17 @@ def phase_int8modes(results: dict, T: int = 35):
             f"factor {L / fs / wall:.3f}x, fc="
             f"{np.round(info['fc'], 1).tolist()} finite={fin}; launches "
             f"{ {k: v for k, v in counts.items() if v} }")
-        if not fin or any(counts[k] <= 0 for k in path_kernels) or counts[
-                "fused_stage_int8"]:
+        # one act_quant_dyn per dynamic quantization: in the JAX API's
+        # int8 one per int8 input gradient, as many as the hinted
+        # forwards, two C8 launches per stage; no hint under amax
+        q8_ok = (counts["act_quant_dyn"] == counts["act_quant"]
+                 and counts["conv_int8"] == 2 * counts["act_quant"]
+                 if "act_quant" in path_kernels else counts["act_quant"] == 0)
+        if (not fin or not q8_ok or counts["fused_stage_int8"]
+                or any(counts[k] <= 0 for k in path_kernels)):
             raise RuntimeError(f"int8modes: the {label} request failed, or "
-                               f"did not run the unfused int8 kernels")
+                               f"did not run the unfused int8 kernels as "
+                               f"expected")
         results.setdefault("int8modes", []).append(
             {"config": label, "wall_s": wall, "rtf": L / fs / wall})
         if "act_rescale" in path_kernels:
@@ -3924,12 +4273,15 @@ def phase_profile():
 
 
 def main(argv=None) -> int:
+    t_start = time.perf_counter()
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--phases",
                    default="identify,kernels,probe,check,requests,"
                            "int8modes,pt,long,train,quality,cli,capability",
                    help="comma list; 'profile' (not run by default) breaks "
-                        "one guided evaluation down, 'iir' (nor this) times "
+                        "one guided evaluation down, 'q8' (nor this) checks "
+                        "and times Q8 alone with its parts, 'iir' (nor "
+                        "this) times "
                         "one with each IIR degradation, 'gates' (nor this) "
                         "runs the int8 gate at 3000 training steps")
     a = p.parse_args(argv)
@@ -3951,8 +4303,8 @@ def main(argv=None) -> int:
         return 2
     phases = a.phases.split(",")
     results: dict = {}
-    if {"identify", "kernels", "probe", "train", "cli",
-            "capability"} & set(phases):
+    if {"identify", "kernels", "probe", "train", "cli", "capability",
+            "q8"} & set(phases):
         phase_identify(kernels)
     if "kernels" in phases:
         phase_kernels(results)
@@ -3982,6 +4334,8 @@ def main(argv=None) -> int:
         phase_gates(results)
     if "profile" in phases:
         phase_profile()
+    if "q8" in phases:
+        phase_q8(results)
     launches = results.get("launches", {})
     line = []
     for name in SOURCES:
@@ -3996,12 +4350,15 @@ def main(argv=None) -> int:
             "bound_by": ("operations" if r.get("ops_ms", 0.0)
                          >= r.get("bytes_ms", 0.0) else "bytes"),
             "library_ms": r.get("library_ms"),
+            **({"eager_ms": r["eager_ms"]} if "eager_ms" in r else {}),
             "check": "ok" if r else "not run",
             "launches_from": LAUNCHES_FROM.get(name, (
                 "the bf16 requests" if "requests" in phases
                 else "the long request")),
             "per": PER.get(name, "one guided evaluation, bf16, main-path "
                                  "shapes")})
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
+        f"kernels' build included")
     log(f"card: {smi_line()}")
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -260,7 +260,7 @@ def test_int8_launchers_refuse_cpu_tensors():
                                                 dtype=torch.int8),
                                  torch.ones((1, 32)), 1, torch.float32)
     with pytest.raises(ValueError):
-        kernels.launch_act_amax(torch.zeros((1, 8)))
+        kernels.launch_act_quant_dyn(torch.zeros((1, 8)))
     with pytest.raises(ValueError):
         kernels.launch_act_quant(torch.zeros((1, 8)), torch.ones(1))
     with pytest.raises(ValueError):

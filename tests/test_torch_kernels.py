@@ -260,7 +260,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing(rng):
                                      "probe_stage", "dilated_conv",
                                      "conv_dw", "stage_dw_operands",
                                      "fused_stage_dw", "conv_int8",
-                                     "act_amax", "act_quant",
+                                     "act_quant_dyn", "act_quant",
                                      "act_rescale"}
     assert all(n == 0 for n in kernels.LAUNCHES.values())
 
