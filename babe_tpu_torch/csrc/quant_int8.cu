@@ -47,6 +47,14 @@
 //   * No 64-bit division or modulo per element: a block finds its item
 //     once.  A range's head and tail up to 16-element boundaries, and the
 //     whole range when x is not 16-byte aligned, go one element a thread.
+//   * act_rescale runs on a 2-D grid, row blocks x items (cut by
+//     kernels.rescale_plan), so a block knows its item and rows from its
+//     index; a thread takes 8 consecutive channels of its rows (two
+//     16-byte int32 loads, one 16-byte bf16 store) with their 8 scales kept
+//     in registers, and finds its channels and first row with one 32-bit
+//     division, once.  N not a multiple of 8, or acc or out off 16-byte
+//     alignment, take a scalar path on the same grid: warps over rows,
+//     lanes over channels.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -113,10 +121,23 @@ template <> struct In<__nv_bfloat16> {
 template <typename T> struct Out;
 template <> struct Out<float> {
   static __device__ __forceinline__ void store(float* p, float v) { *p = v; }
+  // 8 values to a 16-byte aligned address: two 16-byte stores
+  static __device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
+  }
 };
 template <> struct Out<__nv_bfloat16> {
   static __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
     *p = __float2bfloat16(v);  // round to nearest even, as torch does
+  }
+  // one 16-byte store
+  static __device__ __forceinline__ void store8(__nv_bfloat16* p,
+                                                const float (&v)[8]) {
+    __align__(16) __nv_bfloat16 o[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) o[e] = __float2bfloat16(v[e]);
+    *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(o);
   }
 };
 
@@ -278,23 +299,53 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// block (x, b) takes rows [x * rows_blk, (x + 1) * rows_blk) of item b.
+// vec (N a multiple of 8, acc and out 16-byte aligned): thread t owns
+// channels 8 (t % R) .. + 8 of rows t / R, + P, ... (R = N / 8 threads a
+// row, P = blockDim / R rows a pass), its 8 scales in registers: two
+// 16-byte int32 loads and one 16-byte bf16 store (two for fp32) a row.
+// Else warp w takes rows w, w + 8, ..., its lanes the channels, one
+// element a thread.  No division or modulo per element: a thread finds its
+// channels and first row once.
 template <typename T>
 __global__ void __launch_bounds__(256)
     act_rescale(const int32_t* __restrict__ acc,
                 const float* __restrict__ scale, T* __restrict__ out,
-                size_t per_b, int N, size_t n) {
-  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < n;
-       e += (size_t)gridDim.x * blockDim.x) {
-    const size_t b = e / per_b;
-    const int c = (int)(e % (size_t)N);
-    Out<T>::store(out + e, __fmul_rn(__int2float_rn(acc[e]),
-                                     scale[b * N + c]));
+                int rows, int N, int rows_blk, int vec) {
+  const int b = blockIdx.y;
+  const int r_lo = blockIdx.x * rows_blk;
+  const int r_hi = min(rows, r_lo + rows_blk);
+  const float* sc = scale + (size_t)b * N;
+  const size_t item = (size_t)b * rows;
+  if (vec) {
+    const int R = N >> 3, P = blockDim.x / R;
+    const int cg = threadIdx.x % R, pr = threadIdx.x / R;
+    if (pr >= P) return;
+    float s8[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) s8[e] = __ldg(sc + 8 * cg + e);
+#pragma unroll 4
+    for (int r = r_lo + pr; r < r_hi; r += P) {
+      const size_t idx = (item + r) * N + 8 * cg;
+      const int4 a0 = __ldg(reinterpret_cast<const int4*>(acc + idx));
+      const int4 a1 = __ldg(reinterpret_cast<const int4*>(acc + idx + 4));
+      const int32_t av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      float v[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        v[e] = __fmul_rn(__int2float_rn(av[e]), s8[e]);
+      Out<T>::store8(out + idx, v);
+    }
+    return;
   }
-}
-
-inline int blocks_for(size_t n) {
-  return (int)std::max<size_t>(1, std::min<size_t>((n + 255) / 256,
-                                                   132 * 16));
+  const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  for (int r = r_lo + (int)(threadIdx.x >> 5); r < r_hi; r += nw) {
+    const size_t row = (item + r) * N;
+    for (int c = lane; c < N; c += 32)
+      Out<T>::store(out + row + c,
+                    __fmul_rn(__int2float_rn(__ldg(acc + row + c)),
+                              __ldg(sc + c)));
+  }
 }
 
 inline bool bad_cut(int B, long long per_b, int per_item, long long chunk,
@@ -409,24 +460,35 @@ extern "C" int babe_act_quant(const void* x, const void* amax, void* q,
   return (int)cudaGetLastError();
 }
 
-// acc (B, per_b / N, N) int32 with scale (B, N) -> out of dtype 0 fp32 /
-// 1 bf16
+// acc (B, rows, N) int32 with scale (B, N) -> out of dtype 0 fp32 / 1
+// bf16, on the cut of kernels.rescale_plan: `threads` a block, rows_blk
+// rows a block, a grid of gx x B blocks; vec the 8-channel path (N a
+// multiple of 8, acc and out 16-byte aligned).  cudaErrorInvalidValue for
+// a cut that does not cover the rows or that the path does not take.
 extern "C" int babe_act_rescale(const void* acc, const void* scale,
-                                void* out, int B, long long per_b, int N,
-                                int dtype, void* stream) {
-  if (B <= 0 || per_b <= 0 || N <= 0) return 0;
+                                void* out, int B, int rows, int N, int dtype,
+                                int vec, int threads, int rows_blk, int gx,
+                                void* stream) {
+  if (B <= 0 || rows <= 0 || N <= 0) return 0;
+  const uintptr_t a = reinterpret_cast<uintptr_t>(acc) |
+                      reinterpret_cast<uintptr_t>(out);
+  const bool cut_ok =
+      B <= 65535 && threads >= 32 && threads <= 256 && rows_blk >= 1 &&
+      gx >= 1 && (long long)gx * rows_blk >= rows &&
+      (long long)(gx - 1) * rows_blk < rows &&
+      (vec ? N % 8 == 0 && a % 16 == 0 && N / 8 <= 256 &&
+                 threads == (N / 8) * (256 / (N / 8))
+           : threads == 256);
+  if (!cut_ok || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t n = (size_t)B * per_b;
-  const int blocks = babe::q8::blocks_for(n);
+  const dim3 grid(gx, B);
   if (dtype == 0)
-    babe::q8::act_rescale<float><<<blocks, 256, 0, st>>>(
+    babe::q8::act_rescale<float><<<grid, threads, 0, st>>>(
         static_cast<const int32_t*>(acc), static_cast<const float*>(scale),
-        static_cast<float*>(out), per_b, N, n);
-  else if (dtype == 1)
-    babe::q8::act_rescale<__nv_bfloat16><<<blocks, 256, 0, st>>>(
-        static_cast<const int32_t*>(acc), static_cast<const float*>(scale),
-        static_cast<__nv_bfloat16*>(out), per_b, N, n);
+        static_cast<float*>(out), rows, N, rows_blk, vec);
   else
-    return (int)cudaErrorInvalidValue;
+    babe::q8::act_rescale<__nv_bfloat16><<<grid, threads, 0, st>>>(
+        static_cast<const int32_t*>(acc), static_cast<const float*>(scale),
+        static_cast<__nv_bfloat16*>(out), rows, N, rows_blk, vec);
   return (int)cudaGetLastError();
 }

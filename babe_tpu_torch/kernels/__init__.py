@@ -23,12 +23,14 @@ in ``csrc/conv_dw.cu`` the weight-gradient GEMM, counted as ``conv_dw``
 (the dw of K1 and K4) or as ``fused_stage_dw`` (the dw of K2, after its
 operand pass ``stage_dw_operands``, which also forms the input of K2's
 backward engine), and the unfused int8 path's: ``conv_int8`` (C8, the
-int8 (5,3) conv with its rescale, ``csrc/conv_int8.cu``: the stage
-engine's int8 loop or a tile, by ``conv_int8_route``) and Q8's per-item
+int8 (5,3) conv with its rescale, ``csrc/conv_int8.cu``: an s8 TMA +
+wgmma implicit GEMM on K4's ring, the stage engine's int8 loop at 96
+channels, or a ``__dp4a`` tile, by ``conv_int8_route`` and
+``conv_int8_plan``) and Q8's per-item
 quantizers ``act_quant_dyn`` (the dynamic amax and the quantize in one
 cooperative launch) and ``act_quant`` (at a given amax), both cut by
-``q8_plan``, and the int32 rescale ``act_rescale``
-(``csrc/quant_int8.cu``). Each call's route and cut is
+``q8_plan``, and the int32 rescale ``act_rescale`` (cut by
+``rescale_plan``; ``csrc/quant_int8.cu``). Each call's route and cut is
 made here and passed to the kernel: the GEMM's tiles, chunks and splits by
 ``dw_plan``, K1's route (tiles, narrow in, narrow out) by
 ``conv5x3_route`` and ``conv5x3_plan``, K2's, K2's backward's and K3's (a
@@ -38,8 +40,8 @@ tile or the sm_90a stage engine, ``csrc/stage_mma_sm90.cuh``) by
 PyTorch's current stream and raise when the launch status is not
 ``cudaSuccess``. Each build keeps ptxas's report beside the library
 (``BUILD_LOG``, read by ``ptxas_report``). They count their launches in
-``LAUNCHES`` (K4's also by route, in ``ROUTE_LAUNCHES``); nothing else
-touches the counts.
+``LAUNCHES`` (K4's and C8's also by route, in ``ROUTE_LAUNCHES``);
+nothing else touches the counts.
 """
 
 from __future__ import annotations
@@ -100,7 +102,7 @@ KERNELS = {
     # the card's resident blocks for a cut (not a kernel launch)
     "dw_slots": ("conv_dw", "babe_dw_slots", [_I] * 5),
     # C8: the unfused int8 (5,3) conv and its rescale
-    "conv_int8": ("conv_int8", "babe_conv_int8", [_P] * 6 + [_I] * 7
+    "conv_int8": ("conv_int8", "babe_conv_int8", [_P] * 6 + [_I] * 8
                   + [_IP, _I, _P]),
     # Q8: the dynamic per-item quantization (amax, grid barrier, quantize:
     # one cooperative launch), the quantize at a given per-item amax, the
@@ -110,7 +112,7 @@ KERNELS = {
     "act_quant": ("quant_int8", "babe_act_quant", [_P] * 4
                   + [_I, _LL, _I, _I, _LL, _I, _P]),
     "act_rescale": ("quant_int8", "babe_act_rescale", [_P] * 3
-                    + [_I, _LL, _I, _I, _P]),
+                    + [_I] * 8 + [_P]),
     # act_quant_dyn's resident blocks per SM (not a kernel launch), and its
     # parts alone (launched only to time them)
     "q8_slots": ("quant_int8", "babe_act_quant_dyn_slots", [_I]),
@@ -119,15 +121,19 @@ KERNELS = {
 }
 SOURCES = tuple(sorted({src for src, _, _ in KERNELS.values()}))
 
-# not kernels of a path: the occupancy queries, and Q8's parts alone
+# not kernels of a path: the occupancy queries and Q8's parts alone
 LAUNCHES = {k: 0 for k in KERNELS
             if k not in ("dw_slots", "q8_slots", "q8_part")}
 # K4's routes (csrc/dilated_conv.cu): the CUDA-core tile, the mma.sync
-# tile, the TMA + wgmma implicit GEMM; its launches by route beside its
-# count in LAUNCHES
+# tile, the TMA + wgmma implicit GEMM; C8's (csrc/conv_int8.cu): the
+# __dp4a tile, the s8 TMA + wgmma implicit GEMM, the stage engine's int8
+# loop; their launches by route beside their counts in LAUNCHES
 K4_SIMT, K4_MMA, K4_TMA = 0, 1, 2
 K4_ROUTES = ("simt", "mma", "tma")
-ROUTE_LAUNCHES = {"dilated_conv": dict.fromkeys(K4_ROUTES, 0)}
+C8_TILE, C8_TMA, C8_ENGINE = 0, 1, 2
+C8_ROUTES = ("tile", "tma", "engine")
+ROUTE_LAUNCHES = {"dilated_conv": dict.fromkeys(K4_ROUTES, 0),
+                  "conv_int8": dict.fromkeys(C8_ROUTES, 0)}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -269,6 +275,12 @@ def _status(name: str, rc: int) -> None:
 
 
 def _stream(t: torch.Tensor) -> int:
+    """PyTorch's current stream on t's device, as a pointer: through the
+    raw-stream query where torch has it, without making a Stream object
+    each call."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(t.device.index)
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
@@ -494,7 +506,7 @@ def launch_fused_stage(x, a, s, w, d: int, want_conv: bool = False):
 STAGE_TILE, STAGE_ENGINE = 0, 1
 STAGE_FWD, STAGE_BWD, STAGE_I8 = 0, 1, 2
 STAGE_PROBE = 3        # P2's plans: the main loop alone (probe_int8.cu)
-STAGE_C8 = 4           # C8's engine route: the int8 loop, a rescale epilogue
+STAGE_C8 = 4           # C8's engine route (C = N = 96): the int8 loop
 STAGE_KB = 32          # contraction bytes per ring stage (a k-step)
 STAGE_KC = 16          # bf16 channels per ring stage (int8: 32)
 STAGE_PX = 24          # bf16 per staged window pixel (16 + pad): 48 bytes
@@ -506,14 +518,12 @@ STAGE_MIN_C = {STAGE_FWD: 64, STAGE_BWD: 64, STAGE_I8: 96, STAGE_C8: 96}
 
 def stage_route(mode: int, dtype, B: int, F: int, T: int, C: int,
                 d: int) -> int:
-    """The engine for bf16 (K3: bf16 x; C8: any output type, its input
-    is int8) at C a multiple of 32 in 64..256 (K3: 96..256, the int8
-    stacks' channel floor; C8: 96, 128 and 256, its instantiations) with
-    rows of at least 16 positions: every flagship stage, at any batch.
-    Else the tile."""
+    """The engine for bf16 (K3: bf16 x) at C a multiple of 32 in 64..256
+    (K3: 96..256, the int8 stacks' channel floor) with rows of at least 16
+    positions: every flagship stage, at any batch (C8: C = 96 alone, its
+    one instantiation).  Else the tile."""
     if mode == STAGE_C8:
-        return (STAGE_ENGINE if C in (96, 128, 256) and T >= 16
-                else STAGE_TILE)
+        return STAGE_ENGINE if C == 96 and T >= 16 else STAGE_TILE
     if (dtype == torch.bfloat16 and C % 32 == 0
             and STAGE_MIN_C[mode] <= C <= 256 and T >= 16):
         return STAGE_ENGINE
@@ -1390,47 +1400,173 @@ def launch_fused_stage_dw(x, a, s, y, g_y, g_mom, d: int,
 # ----------------------------------- the unfused int8 path (C8, Q8)
 
 
+# C8's TMA route (csrc/conv_int8.cu): K4's block and ring in int8 -- two
+# consumer warpgroups of at most 64 positions each; a ring stage holds
+# their two A boxes (64 positions x 128 channels, 8 KiB each) and one B box
+# (128 channels x bn outputs)
+C8_CHUNK = 128                   # int8 channels per ring stage: 128 bytes
+C8_ABOX = 64 * 128               # bytes of one warpgroup's A slot
+C8_WIDTHS = (64, 96, 128, 256)   # bn, the block's outputs
+
+
 def conv_int8_route(B: int, F: int, T: int, C: int, N: int, d: int) -> int:
-    """C8's route: the stage engine's int8 loop for C = N in {96, 128,
-    256} with rows of at least 16 positions (every flagship int8 stage and
-    its input gradient), else the tile (``csrc/conv_int8.cu``)."""
-    if C != N:
-        return STAGE_TILE
-    return stage_route(STAGE_C8, torch.int8, B, F, T, C, d)
+    """C8's route: the stage engine's int8 loop at C = N = 96 with rows of
+    at least 16 positions (the flagship's 96-channel stages, where a
+    128-channel TMA box is a quarter zero fill and the engine was faster on
+    the card); else the TMA route wherever C and N are multiples of 16 (the
+    16-byte strides its tensor maps need: the flagship's 128- and
+    256-channel stages, the tiny network's 16 and 32 channels); else the
+    ``__dp4a`` tile.  A TMA or engine call on tensors off 16-byte
+    alignment raises (``launch_conv_int8``)."""
+    if stage_route(STAGE_C8, torch.int8, B, F, T, C, d) == STAGE_ENGINE \
+            and N == C:
+        return C8_ENGINE
+    return C8_TMA if C % 16 == 0 and N % 16 == 0 else C8_TILE
+
+
+@dataclasses.dataclass(frozen=True)
+class C8Plan:
+    """The cut of one C8 call on the TMA route, passed to the kernel as its
+    Plan struct: these fields, all ints, in this order.  Block (gx, gy, z)
+    owns outputs n0 = (z % n_tiles) * bn .. n0 + bn of item z // n_tiles
+    at the TT x 2TF positions from (f0, t0) = (gy * 2TF, gx * TT):
+    warpgroup w the TF rows from f0 + w TF (its A box, TT * TF <= 64 of
+    its 64 rows).  It walks n_k = 15 * nch ring stages, tap = it // nch
+    (kf = tap // 3, kt = tap % 3) and channels c0 = (it % nch) * 128 .. c0
+    + 128, in a ring of ``stages`` slots.  On the other routes only
+    ``route`` is read (the engine's cut is ``stage_plan``'s)."""
+    route: int
+    B: int
+    F: int
+    T: int
+    C: int
+    N: int
+    d: int
+    TT: int = 0
+    TF: int = 0
+    bn: int = 0
+    n_tiles: int = 0
+    nch: int = 0
+    n_k: int = 0
+    stages: int = 0
+    stage_bytes: int = 0
+    smem: int = 0
+    gx: int = 0
+    gy: int = 0
+    gz: int = 0
+
+    def meta(self) -> list[int]:
+        return [int(getattr(self, f.name)) for f in dataclasses.fields(self)]
+
+
+def c8_blocks(bn: int) -> int:
+    """C8's TMA blocks an SM (K4's rule): two of bn <= 128, one of 256."""
+    return 2 if bn <= 128 else 1
+
+
+def conv_int8_plan(B: int, F: int, T: int, C: int, N: int, d: int,
+                   route: int | None = None) -> C8Plan:
+    """The route (``conv_int8_route``'s, or ``route``) and, on the TMA
+    route, the cut of one C8 call (see ``C8Plan``): K4's A box
+    (``_k4_box``); bn the narrowest width of C8_WIDTHS that holds N (else
+    256, in several tiles; at N = 256 one tile of 256 ran faster than two
+    of 128 on the card).  ``route`` may be given to time another
+    route.  Raises for a grid past the card's limits or a route the shape
+    cannot take."""
+    base = dict(B=B, F=F, T=T, C=C, N=N, d=int(d))
+    if route is None:
+        route = conv_int8_route(B, F, T, C, N, d)
+    if route == C8_ENGINE and conv_int8_route(B, F, T, C, N, d) != route:
+        raise ValueError(f"conv_int8: the engine route takes C = N = 96 "
+                         f"with T >= 16, not ({B},{F},{T},{C}) -> {N}")
+    if route != C8_TMA:
+        return C8Plan(route, **base)
+    if C % 16 or N % 16:
+        raise ValueError(f"conv_int8: the TMA route takes C and N multiples "
+                         f"of 16, not C={C}, N={N}")
+    TT, TF = _k4_box(F, T)
+    bn = next((w for w in C8_WIDTHS if w >= N), C8_WIDTHS[-1])
+    n_tiles = -(-N // bn)
+    nch = -(-C // C8_CHUNK)
+    stage = 2 * C8_ABOX + bn * C8_CHUNK
+    stages = min(8, K4_RING // c8_blocks(bn) // stage)
+    plan = C8Plan(route, **base, TT=TT, TF=TF, bn=bn, n_tiles=n_tiles,
+                  nch=nch, n_k=15 * nch, stages=stages, stage_bytes=stage,
+                  smem=stages * stage + 1024, gx=-(-T // TT),
+                  gy=-(-F // (2 * TF)), gz=B * n_tiles)
+    if plan.gy > 65535 or plan.gz > 65535:
+        raise ValueError(f"conv_int8: grid {plan.gx}x{plan.gy}x{plan.gz} "
+                         f"too large for ({B},{F},{T},{C}) -> {N}")
+    return plan
+
+
+def _c8_meta(plan: C8Plan):
+    """The C int array the kernel reads for ``plan``: its own fields (TMA),
+    the engine's StagePlan, or none (the tile), with its length."""
+    if plan.route == C8_ENGINE:
+        _, meta, n = _stage_plan(STAGE_C8, torch.int8, plan.B, plan.F,
+                                 plan.T, plan.C, plan.d)
+        return meta, n
+    if plan.route == C8_TMA:
+        m = plan.meta()
+        return (ctypes.c_int * len(m))(*m), len(m)
+    return None, 0
+
+
+# (B, F, T, C, N, d) -> (plan, its meta as a C int array, its length)
+_C8_PLANS: dict = {}
+
+
+def _c8_plan(B: int, F: int, T: int, C: int, N: int, d: int):
+    key = (B, F, T, C, N, d)
+    if key not in _C8_PLANS:
+        plan = conv_int8_plan(B, F, T, C, N, d)
+        _C8_PLANS[key] = (plan, *_c8_meta(plan))
+    return _C8_PLANS[key]
 
 
 def launch_conv_int8(q: torch.Tensor, qwt: torch.Tensor,
                      scale: torch.Tensor, d: int, dtype,
-                     want_acc: bool = False):
+                     want_acc: bool = False, plan: C8Plan | None = None):
     """C8 on the card: the 'SAME' (5,3) conv at dilation (d,1) of int8 q
     (B,F,T,C) with the tap-major int8 kernel qwt (15,N,C), rescaled by
     scale (B,N) fp32 into ``dtype`` (fp32 or bf16).  Returns out (B,F,T,N),
-    or (out, the int32 accumulator) with ``want_acc``.  The route is
-    ``conv_int8_route``'s."""
+    or (out, the int32 accumulator) with ``want_acc``.  The route and cut
+    are ``conv_int8_plan``'s (``plan``, made for this call's shape, to time
+    another cut): the TMA route reads qwt as it is, through a tensor map,
+    the engine its pack (``stage_int8_weights``); both raise for a tensor
+    off 16-byte alignment."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"conv_int8: unsupported output dtype {dtype}")
     _check(q, "conv_int8 q", torch.int8)
     B, F, T, C = q.shape
     N = qwt.shape[1]
+    d = int(d)
     _check(qwt, "conv_int8 qwt", torch.int8, (15, N, C))
     _check(scale, "conv_int8 scale", torch.float32, (B, N))
-    route = conv_int8_route(B, F, T, C, N, d)
-    if route == STAGE_ENGINE:
-        plan, meta, n_meta = _stage_plan(STAGE_C8, torch.int8, B, F, T, C, d)
-        wpk = stage_int8_weights(qwt)
+    if plan is None:
+        plan, meta, n_meta = _c8_plan(B, F, T, C, N, d)
     else:
-        tile = StagePlan(STAGE_TILE, STAGE_C8, B, F, T, C, d).meta()
-        meta, n_meta = (ctypes.c_int * len(tile))(*tile), len(tile)
-        wpk = qwt
+        got = (plan.B, plan.F, plan.T, plan.C, plan.N, plan.d)
+        if got != (B, F, T, C, N, d):
+            raise ValueError(f"conv_int8: a plan for {got}, not "
+                             f"{(B, F, T, C, N, d)}")
+        meta, n_meta = _c8_meta(plan)
+    wpk = stage_int8_weights(qwt) if plan.route == C8_ENGINE else qwt
     out = torch.empty((B, F, T, N), dtype=dtype, device=q.device)
     acc = (torch.empty((B, F, T, N), dtype=torch.int32, device=q.device)
            if want_acc else None)
-    rc = _entry("conv_int8")(
-        q.data_ptr(), qwt.data_ptr(), wpk.data_ptr(), scale.data_ptr(),
-        out.data_ptr(), None if acc is None else acc.data_ptr(), B, F, T, C,
-        N, int(d), _DTYPES[dtype], meta, n_meta, _stream(q))
+    ptrs = (q.data_ptr(), qwt.data_ptr(), wpk.data_ptr(), scale.data_ptr(),
+            out.data_ptr(), None if acc is None else acc.data_ptr())
+    if plan.route != C8_TILE and (
+            ptrs[0] | ptrs[1] | ptrs[3] | ptrs[4] | (ptrs[5] or 0)) % 16:
+        raise ValueError(f"conv_int8: the {C8_ROUTES[plan.route]} route "
+                         f"needs 16-byte aligned tensors")
+    rc = _entry("conv_int8")(*ptrs, B, F, T, C, N, d, _DTYPES[dtype],
+                             plan.route, meta, n_meta, _stream(q))
     _status("conv_int8", rc)
     LAUNCHES["conv_int8"] += 1
+    ROUTE_LAUNCHES["conv_int8"][C8_ROUTES[plan.route]] += 1
     return (out, acc) if want_acc else out
 
 
@@ -1448,15 +1584,12 @@ class Q8Plan:
     ``chunk`` elements (a multiple of Q8_GROUP; an item's last unit
     shorter), unit u = (item u // per_item, its u % per_item-th chunk);
     ``grid`` blocks, block k taking units k, k + grid, ... (one each when
-    per_item > 1, where all B * per_item must be resident); ``vec``
-    elements per 16-byte load (the kernel's In<T>::load16, fixed by the
-    dtype)."""
+    per_item > 1, where all B * per_item must be resident)."""
     B: int
     per_b: int
     grid: int
     per_item: int
     chunk: int
-    vec: int
 
     @property
     def units(self) -> int:
@@ -1491,9 +1624,7 @@ def q8_plan(B: int, per_b: int, dtype, sms: int,
     per_unit = -(-per_b // per_item)
     chunk = -(-per_unit // Q8_GROUP) * Q8_GROUP
     per_item = -(-per_b // chunk)
-    vec = {torch.float32: 4, torch.bfloat16: 8}[dtype]
-    return Q8Plan(B, per_b, min(B * per_item, resident), per_item, chunk,
-                  vec)
+    return Q8Plan(B, per_b, min(B * per_item, resident), per_item, chunk)
 
 
 # per device: (SMs, {dtype: act_quant_dyn's resident blocks per SM}, the
@@ -1613,20 +1744,92 @@ def launch_act_quant(x: torch.Tensor, amax: torch.Tensor):
     return q, s
 
 
+# the rescale's cut (csrc/quant_int8.cu, act_rescale): at most 256
+# threads a block, each taking up to RESCALE_ROWS rows once the grid has
+# RESCALE_BLOCKS blocks
+RESCALE_THREADS = 256
+RESCALE_ROWS = 8
+RESCALE_BLOCKS = 528   # four blocks an SM of the H100's 132
+
+
+@dataclasses.dataclass(frozen=True)
+class RescalePlan:
+    """act_rescale's cut of acc (B, rows, N): a grid of gx x B blocks of
+    ``threads``, block (x, b) taking rows [x rows_blk, (x + 1) rows_blk) of
+    item b.  ``vec``: thread t takes channels 8 (t % R) .. + 8 of rows t //
+    R, t // R + P, ... of its block (R = N / 8, P = threads / R); else warp
+    w takes rows w, w + 8, ... and its lanes the channels."""
+    B: int
+    rows: int
+    N: int
+    vec: bool
+    threads: int
+    rows_blk: int
+    gx: int
+
+    def thread_cells(self, t: int) -> tuple[range, range]:
+        """(rows, channels) of block 0's thread t, per item: the kernel's
+        walk, for the tests' mirror."""
+        if self.vec:
+            R = self.N // 8
+            P = self.threads // R
+            if t // R >= P:
+                return range(0), range(0)
+            return (range(t // R, self.rows_blk, P),
+                    range(8 * (t % R), 8 * (t % R) + 8))
+        return (range(t // 32, self.rows_blk, self.threads // 32),
+                range(t % 32, self.N, 32))
+
+
+def rescale_plan(B: int, rows: int, N: int, vec: bool) -> RescalePlan:
+    """The cut of one act_rescale call (``RescalePlan``): vec (N a multiple
+    of 8, the tensors 16-byte aligned) takes R = N / 8 threads a row and P
+    = 256 // R rows a pass; each thread walks more rows (up to
+    RESCALE_ROWS) only while the grid keeps RESCALE_BLOCKS blocks."""
+    if B <= 0 or rows <= 0 or N <= 0 or B > 65535 or rows >= 2**31:
+        raise ValueError(f"act_rescale: no cut for ({B}, {rows}, {N})")
+    vec = bool(vec) and N % 8 == 0 and N // 8 <= RESCALE_THREADS
+    if vec:
+        R = N // 8
+        P = RESCALE_THREADS // R
+        threads = R * P
+    else:
+        P, threads = RESCALE_THREADS // 32, RESCALE_THREADS
+    per_thread = max(1, min(RESCALE_ROWS,
+                            rows // (P * max(1, RESCALE_BLOCKS // B))))
+    rows_blk = P * per_thread
+    return RescalePlan(B, rows, N, vec, threads, rows_blk, -(-rows // rows_blk))
+
+
+# (B, rows, N, vec) -> plan
+_RESCALE_PLANS: dict = {}
+
+
 def launch_act_rescale(acc: torch.Tensor, scale: torch.Tensor,
                        dtype) -> torch.Tensor:
     """Q8's rescale on the card: acc (B, ..., N) int32 with scale (B, N)
     fp32 -> float(acc) * scale[b, n] in ``dtype`` (fp32 or bf16; plain
-    version ``ops/conv_kernels.int8_rescale_ref``)."""
+    version ``ops/conv_kernels.int8_rescale_ref``), on ``rescale_plan``'s
+    cut: 8 channels a thread where N is a multiple of 8 and acc 16-byte
+    aligned, else one element a thread."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"act_rescale: unsupported output dtype {dtype}")
     _check(acc, "act_rescale acc", torch.int32)
     B, N = acc.shape[0], acc.shape[-1]
     _check(scale, "act_rescale scale", torch.float32, (B, N))
-    out = torch.empty(acc.shape, dtype=dtype, device=acc.device)
-    rc = _entry("act_rescale")(acc.data_ptr(), scale.data_ptr(),
-                               out.data_ptr(), B, acc.numel() // max(B, 1),
-                               N, _DTYPES[dtype], _stream(acc))
+    out = torch.empty_like(acc, dtype=dtype)
+    if acc.numel() == 0:
+        return out
+    rows = acc.numel() // (B * N)
+    a_p, o_p = acc.data_ptr(), out.data_ptr()
+    vec = N % 8 == 0 and (a_p | o_p) % 16 == 0
+    key = (B, rows, N, vec)
+    plan = _RESCALE_PLANS.get(key)
+    if plan is None:
+        plan = _RESCALE_PLANS[key] = rescale_plan(B, rows, N, vec)
+    rc = _entry("act_rescale")(a_p, scale.data_ptr(), o_p, B, rows, N,
+                               _DTYPES[dtype], int(plan.vec), plan.threads,
+                               plan.rows_blk, plan.gx, _stream(acc))
     _status("act_rescale", rc)
     LAUNCHES["act_rescale"] += 1
     return out

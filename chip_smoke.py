@@ -67,7 +67,13 @@ Phases (any failure exits non-zero; no phase catches and carries on):
                 (act_quant_dyn, act_quant) at every int8 stage shape (C >=
                 96) at batch 1 and 4, as the stage's forward and as its
                 int8 input gradient, bit-equal to their plain versions (q,
-                the scales, the int32 accumulator, the output); Q8 also in
+                the scales, the int32 accumulator, the output), each C8
+                launch on its TMA route (s8 TMA + wgmma; at 96 channels on
+                the stage engine's, its TMA route timed beside it), C8
+                timed through its launcher and as device time in a CUDA
+                graph, one
+                launcher call one device kernel, its tensor maps' host
+                encoding timed; Q8 also in
                 fp32 at batch 4, with the per-item amax of act_quant_dyn's
                 phase 1, and at its edge cases (Q8_EDGE), timed at batch 1
                 through its launchers and as device time in CUDA graphs
@@ -99,10 +105,10 @@ Phases (any failure exits non-zero; no phase catches and carries on):
                 in fp32 (its network and its audio).
   5. requests   the flagship model from a seed, written as a JAX-format
                 .ckpt, loaded twice with ``BABE.load`` on the card (bf16 and
-                ``precision="int8"``), each answering two blind ``enhance``
-                requests and one informed one on 184184 samples of seeded
-                low-passed audio.  The launch counters are zeroed just before
-                each model's requests and read just after.
+                ``precision="int8"``), each answering one blind ``enhance``
+                request (bf16 also an informed one) on 184184 samples of
+                seeded low-passed audio.  The launch counters are zeroed
+                just before each model's requests and read just after.
      int8modes  the JAX package's own int8 configurations (the unfused
                 int8 convs C8 and the quantizers Q8): the JAX API's int8
                 (BABE_INT8_FUSED=0 BABE_INT8_BWD=1) and BABE_INT8_SCALE=
@@ -111,7 +117,9 @@ Phases (any failure exits non-zero; no phase catches and carries on):
                 CPU's own int8 error, then serving one guided blind request
                 at the flagship (counters zeroed just before, read just
                 after; the second also holds act_rescale at the int8 1x1
-                shapes it ran, and P1 the int8 1x1 product at shapes
+                shapes it ran and at RESCALE_EDGE (bf16 and fp32, timed
+                through the launcher and as device time beside
+                torch.mul), and P1 the int8 1x1 product at shapes
                 torch._int_mm does not take, bit for bit); then two
                 quantization-aware training steps at the flagship under
                 BABE_PRECISION=int8, in the fused chain and in the JAX
@@ -120,9 +128,9 @@ Phases (any failure exits non-zero; no phase catches and carries on):
      pt         the seeded flagship weights as a reference-format .pt
                 (this script's own inverse name map) and as a .ckpt, both
                 through BABE.load: equal weights and configs (the oct_pow2
-                frame); on the card one denoiser evaluation twice and four
-                blind requests per route, interleaved, finite, the .pt vs
-                .ckpt difference within PT_K times one route's own
+                frame); on the card one denoiser evaluation twice and
+                PT_REPS blind requests per route, interleaved, finite, the
+                .pt vs .ckpt difference within PT_K times one route's own
                 run-to-run spread (the card's atomics; 0 where it is 0);
                 on the CPU one blind request through each route at
                 flagship widths on a short segment, equal bit for bit.
@@ -142,14 +150,14 @@ Phases (any failure exits non-zero; no phase catches and carries on):
                 step, each step's launches held to the network's counts
                 (remat recompute included), params and EMA that moved,
                 then the written .ckpt loaded with BABE.load on the card
-                answering one blind request.
+                answering one blind request at tester.T = LOAD_CHECK_T.
   8. quality    the same-seed 35-step unconditional trajectory of the
                 flagship model (110250 samples, batch 4, gates opened with
                 N(0, 0.02^2)) in bf16 and in int8: the waveform's relative
                 divergence and the LSD between the two, reported, not gated.
   9. cli        ``python -m babe_tpu_torch.test``'s main, in-process, at
-                the flagship in bf16 on a seeded .ckpt and two seeded
-                test wavs: blind_bwe and bwe (firwin, order 500, 1 kHz) at
+                the flagship in bf16 on a seeded .ckpt and one seeded
+                test wav: blind_bwe and bwe (firwin, order 500, 1 kHz) at
                 tester.T = 35, then inpainting, declipping, comp_sens,
                 phase_retrieval and unconditional at tester.T = 8; per mode
                 its seconds per item (and those of its trajectory dumps)
@@ -173,13 +181,20 @@ Phases (any failure exits non-zero; no phase catches and carries on):
                 and times, then act_quant_dyn's phase 1 alone and with its
                 barrier, both kernels with the L2 warm, and at batch 4
                 (QAT's shape, beyond the L2), as device time.
+  profile       (not by default) one guided evaluation of a blind request
+                in bf16, in int8 on the fused chain and in the JAX API's
+                int8 (C8 and Q8): its parts timed, then one whole stage
+                under torch.profiler (device time, busy share, launches,
+                the top kernels by name).
   gates         (not by default) the capability tool at 3000 steps over
                 two trainings, each checkpoint through quality_int8 in the
                 fused chain and in the JAX tool's configuration (the
                 unfused convs); reported, not gated.
 
-The last two lines are the kernels line and the result line
-``{"ok": true, "device": {...}}``.
+Each phase logs its seconds on a line of its own ("phase NAME: S s"),
+and one line sums them up before the card's line.  The last two lines
+are the kernels line and the result line ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -304,7 +319,11 @@ PER = {
                       "the prologues)",
     "conv_int8": "one guided evaluation in the JAX API's int8 "
                  "(BABE_INT8_FUSED=0 BABE_INT8_BWD=1), bf16 carrier, batch "
-                 "1: each int8 stage's forward and its int8 input gradient; "
+                 "1: each int8 stage's forward and its int8 input gradient, "
+                 "on the TMA route (at C = 96 the stage engine's); ms "
+                 "through the launcher (CUDA events, "
+                 "the host's dispatch included), device_ms as device time "
+                 "(a CUDA graph of 20 launches, the L2 flushed before each); "
                  "library_ms is a bf16 cuDNN conv (no PyTorch call computes "
                  "an int8 conv)",
     "act_quant_dyn": "one guided evaluation in the JAX API's int8: the 68 "
@@ -321,8 +340,11 @@ PER = {
                  "points 0, on x in fp32: it takes no bf16; it divides by s "
                  "and clamps at -128, a yardstick of time only)",
     "act_rescale": "one guided evaluation under BABE_INT8_SCALE=amax "
-                   "BABE_INT8_OPS=all: the int8 1x1s' rescales; library_ms "
-                   "is torch.mul(acc, scale) to fp32",
+                   "BABE_INT8_OPS=all: the int8 1x1s' rescales; ms through "
+                   "the launcher, device_ms as device time (a CUDA graph of "
+                   "20 launches, the L2 flushed before each); library_ms is "
+                   "torch.mul(acc, scale) to fp32 through the call, "
+                   "library_device_ms the same as device time",
 }
 # where each kernel's launch count comes from
 LAUNCHES_FROM = {
@@ -382,6 +404,14 @@ def smi_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
+# the library yardsticks (``lib_time``): one warm-up and one timed call,
+# then LIB_REPS more timed calls where that one took under LIB_SHORT_MS;
+# cuDNN takes 50-100 ms a call at dilations of 8 and more, where repeats
+# would add about a minute to the kernels phase
+LIB_REPS = 3
+LIB_SHORT_MS = 10.0
+
+
 def cuda_time(fn, reps: int = 5, warm: int = 1) -> float:
     """Mean milliseconds of ``fn()`` over ``reps`` launches (CUDA events)."""
     import torch
@@ -396,6 +426,14 @@ def cuda_time(fn, reps: int = 5, warm: int = 1) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def lib_time(fn) -> float:
+    """Mean milliseconds of a library yardstick ``fn()``: one timed call
+    after a warm-up, or the mean of LIB_REPS more where it took under
+    LIB_SHORT_MS."""
+    t = cuda_time(fn, reps=1)
+    return t if t >= LIB_SHORT_MS else cuda_time(fn, reps=LIB_REPS, warm=0)
 
 
 def errs(out, ref) -> tuple[float, float, float]:
@@ -573,7 +611,7 @@ def phase_kernels(results: dict):
             t_k = cuda_time(lambda: kernels.launch_conv5x3(
                 x, wf, d, transposed=tr))
             t_p = cuda_time(lambda: ck.conv_ref(x, w, d), reps=2)
-            t_l = cuda_time(library_conv(x, w, d))
+            t_l = lib_time(library_conv(x, w, d))
             flops = 2.0 * F * T * C * N * 15
             nbytes = (F * T * (C + N) + 15 * C * N) * isz
             b, by = bound_ms(flops, nbytes, dtype)
@@ -597,7 +635,7 @@ def phase_kernels(results: dict):
                 x, a, s, w, d, want_conv=True))
             t_p = cuda_time(lambda: ck._dil_stage_parts(x, a, s, w, d),
                             reps=2)
-            t_l = cuda_time(library_conv(x, w, d))
+            t_l = lib_time(library_conv(x, w, d))
             flops = 2.0 * F * T * C * C * 15
             nbytes = (3 * F * T * C + 15 * C * C) * isz + 4 * 4 * C
             b, by = bound_ms(flops, nbytes, dtype)
@@ -632,7 +670,7 @@ def phase_kernels(results: dict):
                 *args, w, d))
             t_p = cuda_time(lambda: ck.dil_stage_bwd_ref(
                 x, a, s, w, y, c, args[0], args[1], d), reps=2)
-            t_l = cuda_time(library_conv(x, ck._flip_io(w), d))
+            t_l = lib_time(library_conv(x, ck._flip_io(w), d))
             nbytes = (5 * F * T * C + 15 * C * C) * isz + 6 * 4 * C
             b, by = bound_ms(flops, nbytes, dtype)
             log(f"{line} x{count} | ms={t_k:.4f} bound={b:.4f}({by}) "
@@ -689,6 +727,66 @@ def phase_kernels(results: dict):
                            f"beyond the stated tolerance {TOL}")
 
 
+C8_REPS = 20  # launches per CUDA graph when timing C8 as device time
+# the channel counts where C8 takes the stage engine's route (the TMA's
+# box there is a quarter zero fill); its TMA route is timed beside it
+C8_ENGINE_C = (96,)
+# C8's edge shapes (B, F, T, C, N, d) and the route each must take: the
+# tiny network's 16 and 32 channels (a 128-channel box over a 16- or
+# 32-byte row, most of it zero fill), C != N, 96 channels on rows too
+# short for the engine, F off a multiple of 2 TF (boxes cut at the F
+# edge) with ragged T and two items, d at least F / 4 with N = 256 (one
+# tile of 256), d past F on a ragged second channel chunk (C = 160), and
+# channels off multiples of 16 (the tile)
+C8_EDGE = {(1, 64, 256, 16, 16, 1): "tma", (1, 64, 256, 32, 32, 2): "tma",
+           (1, 64, 64, 96, 128, 1): "tma", (1, 64, 8, 96, 96, 1): "tma",
+           (2, 37, 20, 128, 128, 2): "tma", (1, 48, 64, 128, 256, 16): "tma",
+           (1, 40, 24, 160, 96, 64): "tma", (1, 30, 20, 40, 24, 1): "tile"}
+
+
+def _c8_edges(g) -> bool:
+    """C8 at C8_EDGE on random int8 operands: the route the rule gives,
+    the launch counted on it, and acc and out equal to the plain version
+    bit for bit, in bf16 and fp32."""
+    import torch
+
+    from babe_tpu_torch import kernels
+    from babe_tpu_torch.ops import conv_kernels as ck
+
+    ok = True
+    by_route = kernels.ROUTE_LAUNCHES["conv_int8"]
+    for (B, F, T, C, N, d), want in C8_EDGE.items():
+        q = torch.randint(-127, 128, (B, F, T, C), generator=g, device="cuda",
+                          dtype=torch.int8)
+        qw = torch.randint(-127, 128, (5, 3, C, N), generator=g,
+                           device="cuda", dtype=torch.int8)
+        sx = torch.rand((B,), generator=g, device="cuda") / 100
+        sw = torch.rand((N,), generator=g, device="cuda") / 100
+        qwt, scale = kernels.tap_major(qw), ck.int8_scale(sx, sw)
+        racc = ck.conv_int8_acc_ref(q, qw, (d, 1))
+        route = kernels.C8_ROUTES[kernels.conv_int8_route(B, F, T, C, N, d)]
+        line = []
+        for dtype in (torch.bfloat16, torch.float32):
+            before = dict(by_route)
+            out, acc = kernels.launch_conv_int8(q, qwt, scale, d, dtype,
+                                                want_acc=True)
+            moved = {k: by_route[k] - before[k] for k in by_route}
+            rout = ck.int8_rescale_ref(racc, sx, sw, dtype)
+            torch.cuda.synchronize()
+            eq = {"acc": torch.equal(acc, racc), "out": torch.equal(out, rout)}
+            good = (all(eq.values()) and route == want
+                    and moved == {k: int(k == want) for k in by_route})
+            ok &= good
+            line.append(f"{str(dtype).split('.')[-1]} bit-equal "
+                        f"{'/'.join(k for k, v in eq.items() if v)}"
+                        + ("" if eq["acc"] else
+                           f" (acc differs at {int((acc != racc).sum())})")
+                        + f" {'ok' if good else 'FAIL'}")
+        log(f"C8 edge B={B} F={F} T={T} C={C} N={N} d={d} [{route}, want "
+            f"{want}]: {'; '.join(line)}")
+    return ok
+
+
 def _kernel_int8_convs(shapes, account, library_conv, agg) -> bool:
     """C8 (``conv_int8``) and Q8 (``act_quant_dyn``, ``act_quant``) against
     their plain versions at every flagship int8 stage shape (C >= 96, the
@@ -698,17 +796,29 @@ def _kernel_int8_convs(shapes, account, library_conv, agg) -> bool:
     gradient (a bf16 cotangent at its dynamic amax, ``act_quant_dyn``, the
     flipped, io-swapped kernel), bf16 out; fp32 out at batch 1.  q, the
     scales, the int32 accumulator and the output must equal the plain
-    version's bit for bit.  At batch 1 in bf16 it times C8, its plain
-    version and its yardstick (a bf16 cuDNN conv); then Q8 on its own
-    (``_kernel_q8``)."""
+    version's bit for bit, each C8 launch on the TMA route (its route's
+    count moved by one), but at C = 96 on the engine's (``C8_ENGINE_C``),
+    where the TMA route is timed beside it; then C8 at its edge shapes
+    (``_c8_edges``).  At batch 1 in bf16 it times C8 through its launcher
+    (CUDA events, the host's dispatch included: ``ms``), as device time in
+    a CUDA graph of C8_REPS launches with the L2 flushed before each
+    (``_flushed_ms``: ``device_ms``) and the launcher's host time alone
+    (no synchronisation), its plain version and its yardstick (a bf16
+    cuDNN conv).  One launcher call is one device kernel (torch.profiler).
+    Then Q8 on its own (``_kernel_q8``)."""
     import torch
 
     from babe_tpu_torch import kernels
     from babe_tpu_torch.ops import conv_kernels as ck
 
+    t0 = time.perf_counter()
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(88)
+    flush_buf = torch.ones(2**25, dtype=torch.float32, device=dev)
     ok = True
+    by_route = kernels.ROUTE_LAUNCHES["conv_int8"]
+    sums = {"device": 0.0, "host": 0.0, "engine at 96": 0.0,
+            "tma at 96": 0.0}
     for (F, T, C, d), count in sorted(shapes.items()):
         for B, dtype in ((1, torch.bfloat16), (4, torch.bfloat16),
                          (1, torch.float32)):
@@ -731,8 +841,10 @@ def _kernel_int8_convs(shapes, account, library_conv, agg) -> bool:
                 qw, sw = ck.quant_weight_per_cout(wk)
                 qwt = kernels.tap_major(qw)
                 scale = ck.int8_scale(sx, sw)
+                before = dict(by_route)
                 out, acc = kernels.launch_conv_int8(q, qwt, scale, d, dtype,
                                                     want_acc=True)
+                moved = {k: by_route[k] - before[k] for k in by_route}
                 racc = ck.conv_int8_acc_ref(q, qw, (d, 1))
                 rout = ck.int8_rescale_ref(racc, sx, sw, dtype)
                 torch.cuda.synchronize()
@@ -740,10 +852,12 @@ def _kernel_int8_convs(shapes, account, library_conv, agg) -> bool:
                       "acc": torch.equal(acc, racc),
                       "out": torch.equal(out, rout)}
                 good &= all(eq.values())
-                route = STAGE_ROUTES[kernels.conv_int8_route(B, F, T, C, C,
-                                                             d)]
-                good &= not (B == 1 and dtype == torch.bfloat16
-                             and route != "engine")
+                route = kernels.C8_ROUTES[kernels.conv_int8_route(
+                    B, F, T, C, C, d)]
+                # the TMA route, but the engine's at C = 96 (C8_ENGINE_C)
+                want = "engine" if C in C8_ENGINE_C else "tma"
+                good &= route == want and moved == {
+                    k: int(k == want) for k in by_route}
                 e = errs(out, rout)
                 line.append(f"{role} [{route}] bit-equal "
                             f"{'/'.join(k for k, v in eq.items() if v)}"
@@ -752,22 +866,70 @@ def _kernel_int8_convs(shapes, account, library_conv, agg) -> bool:
                                f")"))
                 if B != 1 or dtype != torch.bfloat16:
                     continue
-                t_k = cuda_time(lambda: kernels.launch_conv_int8(
-                    q, qwt, scale, d, dtype))
+
+                def c8():
+                    return kernels.launch_conv_int8(q, qwt, scale, d, dtype)
+
+                t_k = cuda_time(c8)
+                t_d = _flushed_ms(c8, flush_buf, C8_REPS)
+                if route == "engine":  # the TMA route it was held against
+                    tma = kernels.conv_int8_plan(B, F, T, C, C, d,
+                                                 route=kernels.C8_TMA)
+                    t_t = _flushed_ms(lambda: kernels.launch_conv_int8(
+                        q, qwt, scale, d, dtype, plan=tma), flush_buf,
+                        C8_REPS)
+                    sums["tma at 96"] += count * t_t
+                    sums["engine at 96"] += count * t_d
+                torch.cuda.synchronize()
+                h0 = time.perf_counter()
+                for _ in range(C8_REPS):
+                    c8()
+                t_h = 1e3 * (time.perf_counter() - h0) / C8_REPS
+                torch.cuda.synchronize()
                 t_p = cuda_time(lambda: ck.int8_rescale_ref(
                     ck.conv_int8_acc_ref(q, qw, (d, 1)), sx, sw, dtype),
                     reps=1)
-                t_l = cuda_time(library_conv(x, wk, d))
+                t_l = lib_time(library_conv(x, wk, d))
                 flops = 2.0 * F * T * C * C * 15
                 nbytes = F * T * C * (1 + 2) + 15 * C * C + 4 * C
                 b, by = bound_ms(flops, nbytes, torch.int8)
-                line[-1] += (f" ms={t_k:.4f} bound={b:.4f}({by}) "
-                             f"plain={t_p:.4f} cudnn(bf16)={t_l:.4f}")
+                line[-1] += (f" ms={t_k:.4f} device={t_d:.4f} host="
+                             f"{t_h:.4f} bound={b:.4f}({by}) plain="
+                             f"{t_p:.4f} cudnn(bf16)={t_l:.4f}"
+                             + (f" tma device={t_t:.4f}" if route ==
+                                "engine" else ""))
                 account("conv_int8", count, dtype, t_k, t_p, t_l, flops,
                         nbytes, e, op_dtype=torch.int8)
+                sums["device"] += count * t_d
+                sums["host"] += count * t_h
             ok &= good
             log(f"C8/Q8 {dn:8s} B={B} F={F:3d} T={T:4d} C={C:3d} d={d:2d} "
                 f"x{count}: {'; '.join(line)} {'ok' if good else 'FAIL'}")
+    agg["conv_int8"]["device_ms"] = sums["device"]
+    ok &= _c8_edges(g)
+    x = torch.randint(-127, 128, (1, 448, 32, 256), generator=g, device=dev,
+                      dtype=torch.int8)
+    qwt = torch.randint(-127, 128, (15, 256, 256), generator=g, device=dev,
+                        dtype=torch.int8)
+    scale = torch.ones((1, 256), device=dev)
+    name = _one_device_kernel(lambda: kernels.launch_conv_int8(
+        x, qwt, scale, 1, torch.bfloat16), "c8_tma")
+    # Q8's rescale (its checks and times are int8modes', at the shapes the
+    # amax/all request runs): one launcher call, one device kernel too
+    acc = torch.randint(-2**24, 2**24, (1, 320, 128, 128), generator=g,
+                        device=dev, dtype=torch.int32)
+    s_acc = torch.ones((1, 128), device=dev)
+    name_r = _one_device_kernel(lambda: kernels.launch_act_rescale(
+        acc, s_acc, torch.bfloat16), "act_rescale")
+    log(f"C8: one launcher call, one device kernel: {name}; act_rescale: "
+        f"one launcher call, one device kernel: {name_r}")
+    log(f"C8 per guided evaluation (bf16, batch 1, 136 launches; ms): "
+        f"through the launcher {agg['conv_int8']['ms']:.4f}, device (L2 "
+        f"flushed) {sums['device']:.4f}, the launcher's host time "
+        f"{sums['host']:.4f}, bound {agg['conv_int8']['bound_ms']:.4f}; at "
+        f"C = 96 the engine {sums['engine at 96']:.4f} against the TMA "
+        f"route {sums['tma at 96']:.4f} (device, L2 flushed); "
+        f"{time.perf_counter() - t0:.1f} s")
     return ok & _kernel_q8(shapes, account, agg)
 
 
@@ -822,21 +984,29 @@ def _q8_eq_text(eq: dict) -> str:
             + f" {'ok' if good else 'FAIL'}")
 
 
-def _one_device_kernel(fn, name: str) -> str:
+def _one_device_kernel(fn, name: str, traces: int = 3) -> str:
     """The device kernels of one ``fn()`` under torch.profiler: exactly one,
-    named ``name``, or it raises."""
+    named ``name``, or it raises.  A trace that holds no device kernel at
+    all (the profiler's device trace sometimes comes back empty: PERF.md
+    section 7) is taken again, up to ``traces`` times, and each empty one
+    is logged; a trace with another count or name raises at once."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kern = [(e.key, e.count) for e in prof.key_averages()
-            if getattr(e, "device_type", None)
-            == torch.autograd.DeviceType.CUDA]
+    for i in range(traces):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kern = [(e.key, e.count) for e in prof.key_averages()
+                if getattr(e, "device_type", None)
+                == torch.autograd.DeviceType.CUDA]
+        if kern:
+            break
+        log(f"{name}: trace {i + 1} of {traces} under torch.profiler held "
+            f"no device kernel")
     if len(kern) != 1 or kern[0][1] != 1 or f"::{name}<" not in kern[0][0]:
         raise RuntimeError(f"one {name} call ran the device kernels {kern}, "
                            f"not one {name}")
@@ -875,14 +1045,14 @@ def _q8_fresh_capture(kernels, ck, x) -> bool:
     return refused and same
 
 
-def _flushed_ms(fn, flush_buf) -> float:
-    """Device ms of one ``fn()`` in a CUDA graph of Q8_REPS launches, each
+def _flushed_ms(fn, flush_buf, reps: int = Q8_REPS) -> float:
+    """Device ms of one ``fn()`` in a CUDA graph of ``reps`` launches, each
     after a read of ``flush_buf`` (the L2 flushed), that read's own graph
     time subtracted."""
     from babe_tpu_torch.tools.probe_int8 import device_ms
 
-    t_f = device_ms(lambda: flush_buf.amax(), Q8_REPS)
-    both = device_ms(lambda: (flush_buf.amax(), fn()), Q8_REPS)
+    t_f = device_ms(lambda: flush_buf.amax(), reps)
+    both = device_ms(lambda: (flush_buf.amax(), fn()), reps)
     return both - t_f
 
 
@@ -1739,7 +1909,7 @@ def _kernel_k4(account, results) -> bool:
                 t_k = cuda_time(lambda: kernels.launch_dilated_conv(
                     x, w, dil))
                 t_p = cuda_time(lambda: pc.conv_ref(x, w, dil), reps=2)
-                t_l = cuda_time(_library_conv(x, w, dil))
+                t_l = lib_time(_library_conv(x, w, dil))
                 flops = 2.0 * B * F * T * kf * kt * C * N
                 nbytes = (B * F * T * (C + N) + kf * kt * C * N) * isz
                 b, by = bound_ms(flops, nbytes, dtype)
@@ -1912,7 +2082,7 @@ def _kernel_dw(account, k1_shapes, k2_shapes, B: int = 4) -> bool:
                 x, gy, (5, 3), (d, 1)))
             t_p = cuda_time(lambda: ck.conv_dw_ref(x, gy, (5, 3), (d, 1)),
                             reps=2)
-            t_l = cuda_time(_library_wgrad(x, gy, (5, 3), (d, 1)))
+            t_l = lib_time(_library_wgrad(x, gy, (5, 3), (d, 1)))
             flops = 2.0 * B * F * T * 15 * C * N
             nbytes = B * F * T * (C + N) * isz + 15 * C * N * 4
             b, by = bound_ms(flops, nbytes, dtype)
@@ -1928,7 +2098,7 @@ def _kernel_dw(account, k1_shapes, k2_shapes, B: int = 4) -> bool:
             t_o = cuda_time(lambda: kernels.launch_stage_dw_operands(*args))
             t_op = cuda_time(lambda: ck.stage_dw_operands_ref(*args), reps=2)
             h, gc = ck.stage_dw_operands_ref(*args)
-            t_l = cuda_time(_library_wgrad(h, gc, (5, 3), (d, 1)))
+            t_l = lib_time(_library_wgrad(h, gc, (5, 3), (d, 1)))
             del h, gc
             n_el = B * F * T * C
             flops = 2.0 * n_el * 15 * C
@@ -2009,7 +2179,7 @@ def _kernel_int8_stage(B, F, T, C, d, count, dtype, g, account,
         t_p = cuda_time(lambda: ck.dil_stage_int8_ref(x, a, iv, post, qw, d),
                         reps=2)
         wb = w.to(torch.bfloat16)
-        t_l = cuda_time(library_conv(x, wb, d))
+        t_l = lib_time(library_conv(x, wb, d))
         flops = 2.0 * F * T * C * C * 15
         nbytes = 2 * F * T * C * x.element_size() + 15 * C * C + 4 * (
             2 * C + 1)
@@ -2883,10 +3053,16 @@ def _flagship_ckpt(args, tmpdir: str) -> str:
     return path
 
 
-def phase_requests(results: dict, T: int = 35, n_blind: int = 2):
-    """Two blind requests and one informed request through each of two
-    loads of the same checkpoint, bf16 and int8.  Each model's run is one
-    path: the counters are zeroed just before it and read just after."""
+# the precisions whose model also answers an informed request in the
+# requests phase (int8's would run the blind request's kernels again)
+INFORMED = ("bf16",)
+
+
+def phase_requests(results: dict, T: int = 35, n_blind: int = 1):
+    """``n_blind`` blind requests through each of two loads of the same
+    checkpoint, bf16 and int8, and one informed request in each precision
+    of INFORMED.  Each model's run is one path: the counters are zeroed
+    just before it and read just after."""
     import torch
 
     from babe_tpu_torch import kernels
@@ -2910,9 +3086,10 @@ def phase_requests(results: dict, T: int = 35, n_blind: int = 2):
     log(f"requests: checkpoint written and loaded twice in "
         f"{time.perf_counter() - t0:.1f} s; tester.T={T} ({2 * T - 1} "
         f"guided evaluations per request)")
-    reqs = [("blind", None)] * n_blind + [("informed", (1000.0, -40.0))]
     for prec, path_kernels in (("bf16", BF16_PATH), ("int8", INT8_PATH)):
         m = models.pop(prec)
+        reqs = [("blind", None)] * n_blind + (
+            [("informed", (1000.0, -40.0))] if prec in INFORMED else [])
         kernels.reset_launch_counts()
         for k, (kind, filt) in enumerate(reqs):
             x = _lowpassed_audio(L, fs, seed=10 + k)
@@ -3081,53 +3258,90 @@ def _qat_steps(knobs: dict, steps: int = 2) -> str:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# the rescale's edge cases (B, F, T, N, offset): N not a multiple of 8 (the
+# scalar path), a view one element off 16-byte alignment (the scalar path
+# at N = 128), several items, one row
+RESCALE_EDGE = [(2, 64, 20, 36, 0), (1, 64, 32, 128, 1), (3, 32, 16, 96, 0),
+                (1, 1, 1, 8, 0)]
+RESCALE_REPS = 20  # launches per CUDA graph when timing the rescale
+
+
 def _rescale_checks(shapes, results) -> None:
     """Q8's ``act_rescale`` against its plain version at the int8 1x1
     products one guided evaluation ran (recorded: (B, F, T, N) and the
-    count), bit for bit, timed beside the plain version; the sums go to
-    the kernels line."""
+    count), bit for bit in bf16 and fp32, and at RESCALE_EDGE; timed in
+    bf16 through its launcher (CUDA events, the host's dispatch included)
+    and as device time in a CUDA graph of RESCALE_REPS launches with the L2
+    flushed before each (``_flushed_ms``), beside the plain version and the
+    yardstick ``torch.mul(acc, scale)`` (fp32 out) timed both ways; the
+    sums go to the kernels line."""
     import torch
 
     from babe_tpu_torch import kernels
     from babe_tpu_torch.ops import conv_kernels as ck
 
     g = torch.Generator(device="cuda").manual_seed(77)
+    flush_buf = torch.ones(2**25, dtype=torch.float32, device="cuda")
     a = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-         "max_abs_err": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0, "shapes": 0}
-    for (B, F, T, N), count in sorted(shapes.items()):
-        acc = torch.randint(-2**24, 2**24, (B, F, T, N), generator=g,
-                            device="cuda", dtype=torch.int32)
+         "max_abs_err": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0, "shapes": 0,
+         "device_ms": 0.0, "library_device_ms": 0.0}
+
+    def case(B, F, T, N, off=0):
+        buf = torch.randint(-2**24, 2**24, (B * F * T * N + off,),
+                            generator=g, device="cuda", dtype=torch.int32)
+        acc = buf[off:].view(B, F, T, N)
         sx = torch.rand((B,), generator=g, device="cuda") / 100
         sw = torch.rand((N,), generator=g, device="cuda") / 100
-        out = kernels.launch_act_rescale(acc, ck.int8_scale(sx, sw),
-                                         torch.bfloat16)
-        ref = ck.int8_rescale_ref(acc, sx, sw, torch.bfloat16)
-        torch.cuda.synchronize()
-        if not torch.equal(out, ref):
-            raise RuntimeError(f"act_rescale differs from its plain version "
-                               f"at {(B, F, T, N)}")
+        for dtype in (torch.bfloat16, torch.float32):
+            out = kernels.launch_act_rescale(acc, ck.int8_scale(sx, sw),
+                                             dtype)
+            ref = ck.int8_rescale_ref(acc, sx, sw, dtype)
+            torch.cuda.synchronize()
+            if not torch.equal(out, ref):
+                raise RuntimeError(f"act_rescale differs from its plain "
+                                   f"version at {(B, F, T, N)}, offset "
+                                   f"{off}, {dtype}")
+        return acc, sx, sw
+
+    for B, F, T, N, off in RESCALE_EDGE:
+        case(B, F, T, N, off)
+    log(f"act_rescale edge cases {RESCALE_EDGE} (B, F, T, N, offset): "
+        f"bit-equal in bf16 and fp32")
+    for (B, F, T, N), count in sorted(shapes.items()):
+        acc, sx, sw = case(B, F, T, N)
         sc = ck.int8_scale(sx, sw)
-        t_k = cuda_time(lambda: kernels.launch_act_rescale(
-            acc, sc, torch.bfloat16))
+
+        def rescale():
+            return kernels.launch_act_rescale(acc, sc, torch.bfloat16)
+
+        def mul():  # the yardstick: one PyTorch call, its output fp32
+            return torch.mul(acc, sc.view(B, 1, 1, N))
+
+        t_k = cuda_time(rescale)
+        t_d = _flushed_ms(rescale, flush_buf, RESCALE_REPS)
         t_p = cuda_time(lambda: ck.int8_rescale_ref(acc, sx, sw,
                                                     torch.bfloat16), reps=2)
-        # the yardstick: one PyTorch call, its output fp32
-        t_l = cuda_time(lambda: torch.mul(acc, sc.view(B, 1, 1, N)))
+        t_l = cuda_time(mul)
+        t_ld = _flushed_ms(mul, flush_buf, RESCALE_REPS)
         n = B * F * T * N
         b, by = bound_ms(n, 6.0 * n, torch.float32)
         a["ms"] += count * t_k
+        a["device_ms"] += count * t_d
         a["plain_ms"] += count * t_p
         a["library_ms"] += count * t_l
+        a["library_device_ms"] += count * t_ld
         a["bound_ms"] += count * b
         a["ops_ms"] += count * bound_ms(n, 0.0, torch.float32)[0]
         a["bytes_ms"] += count * 1e3 * 6.0 * n / HBM_BPS
         a["shapes"] += 1
         log(f"act_rescale B={B} F={F:3d} T={T:4d} N={N:3d} x{count}: "
-            f"bit-equal ms={t_k:.4f} bound={b:.4f}({by}) plain={t_p:.4f} "
-            f"torch.mul={t_l:.4f}")
+            f"bit-equal ms={t_k:.4f} device={t_d:.4f} bound={b:.4f}({by}) "
+            f"plain={t_p:.4f} torch.mul={t_l:.4f} device={t_ld:.4f}")
     log(f"act_rescale: per guided evaluation (amax, all ops; bf16) "
-        f"ms={a['ms']:.3f} bound_ms={a['bound_ms']:.3f} "
-        f"plain_ms={a['plain_ms']:.3f} library_ms={a['library_ms']:.3f}")
+        f"ms={a['ms']:.3f} device_ms={a['device_ms']:.3f} "
+        f"bound_ms={a['bound_ms']:.3f} plain_ms={a['plain_ms']:.3f} "
+        f"library_ms={a['library_ms']:.3f} (device "
+        f"{a['library_device_ms']:.3f})")
     results["act_rescale"] = a
 
 
@@ -3290,7 +3504,7 @@ def _reference_state_dict(net) -> dict:
 # spread is 0.  An outlier run enters pairs of both kinds, so without a
 # difference between the routes the ratio stays near 1 (0.93 over 28
 # pairs on an H100)
-PT_REPS = 4
+PT_REPS = 3
 PT_K = 4.0
 
 
@@ -3581,6 +3795,11 @@ def _seeded_wavs(folder: str, n: int, seconds: float, fs: int, seed: int):
                   (0.5 * x / np.abs(x).max()).astype(np.float32), fs)
 
 
+# the trained checkpoint's load check answers one blind request at this
+# depth (the request phases time the full 35 steps)
+LOAD_CHECK_T = 8
+
+
 def phase_train(results: dict, steps: int = 5, untimed: int = 2):
     """``python -m babe_tpu_torch.train``'s ``main`` at the flagship config
     (dset=musicnet on seeded 44.1 kHz wavs, exp=maestro22k_8s: batch 4,
@@ -3708,7 +3927,7 @@ def phase_train(results: dict, steps: int = 5, untimed: int = 2):
         del tr, snap
         torch.cuda.empty_cache()
         t1 = time.perf_counter()
-        m = BABE.load(ckpt)
+        m = BABE.load(ckpt, overrides=[f"tester.T={LOAD_CHECK_T}"])
         L, fs = int(m.args.exp.audio_len), m.fs
         x = _lowpassed_audio(L, fs, seed=31)
         torch.cuda.synchronize()
@@ -3718,7 +3937,8 @@ def phase_train(results: dict, steps: int = 5, untimed: int = 2):
         fin = (bool(np.isfinite(out).all()) and out.shape == (1, L)
                and np.isfinite(info["fc"]).all())
         log(f"train: the checkpoint loaded with BABE.load on "
-            f"{m.device} in {t2 - t1:.1f} s; one blind request "
+            f"{m.device} in {t2 - t1:.1f} s; one blind request (tester.T="
+            f"{LOAD_CHECK_T}) "
             f"{time.perf_counter() - t2:.2f} s, fc="
             f"{np.round(info['fc'], 1).tolist()} finite={fin}")
         if not fin:
@@ -3865,6 +4085,8 @@ def phase_iir(results: dict, t: float = 0.5):
 
 # the cli phase: its modes, in two runs of the CLI at two depths; the
 # files each mode writes per test item (the unconditional run's one wav)
+# test items per CLI run (a second item repeats each mode's timing)
+CLI_ITEMS = 1
 CLI_RUNS = ((35, ("blind_bwe", "bwe")),
             (8, ("inpainting", "declipping", "comp_sens", "phase_retrieval",
                  "unconditional")))
@@ -3895,8 +4117,8 @@ def _results_finite(res) -> bool:
 def phase_cli(results: dict):
     """``python -m babe_tpu_torch.test``'s ``main``, in-process, at the
     flagship (exp=maestro22k_8s, network=cqtdiff+, bf16) on seeded weights
-    written as a .ckpt and two seeded test wavs (dset=musicnet, 9 s at
-    22.05 kHz, cropped to 184184 samples by the test set): blind_bwe and
+    written as a .ckpt and CLI_ITEMS seeded test wav (dset=musicnet, 9 s
+    at 22.05 kHz, cropped to 184184 samples by the test set): blind_bwe and
     bwe (firwin, order 500, fc 1000 Hz) at tester.T = 35, then
     inpainting, declipping, comp_sens, phase_retrieval and unconditional
     (2 clips) at tester.T = 8.  The counters are zeroed just before each
@@ -3905,9 +4127,7 @@ def phase_cli(results: dict):
     Tester method.  blind_bwe's seconds are split between card syncs into
     its request (``predict_blind_bwe``) and the host work around it (the
     low-pass, the metrics, the wav writes, the trajectory dump, the
-    animation and the filter plot, the host copies); after the runs its
-    first request is replayed from the same generator state with rid=True
-    and with rid=False, which prices the trajectory the CLI keeps.  Fails
+    animation and the filter plot, the host copies).  Fails
     on a missing file, a non-finite result, or a guided mode that did not
     launch K1, K2 and K2's backward (and the fit, for blind_bwe)."""
     import shutil
@@ -3944,17 +4164,7 @@ def phase_cli(results: dict):
         return out
 
     parts: list = []  # (piece, seconds between card syncs) of a mode
-    replay: list = []  # the first blind request: sampler, generator, y
-    predict = BlindSampler.predict_blind_bwe
-
-    def keep_first(self, gen, y, *a, **k):
-        if not replay:
-            replay.append((self, gen.get_state(), gen.device,
-                           y.detach().clone()))
-        return predict(self, gen, y, *a, **k)
-
     ulog.save_trajectory = timed_dump
-    BlindSampler.predict_blind_bwe = keep_first
     undo_parts = _spied([
         (BlindSampler, "predict_blind_bwe", "request"),
         (Tester, "apply_lowpass_fcA", "low-pass"),
@@ -3970,7 +4180,7 @@ def phase_cli(results: dict):
         ckpt = _flagship_ckpt(default_config(base), tmp)
         test_dir = os.path.join(tmp, "test")
         os.makedirs(test_dir)
-        _seeded_wavs(test_dir, 2, 9.0, 22050, seed=40)
+        _seeded_wavs(test_dir, CLI_ITEMS, 9.0, 22050, seed=40)
         names = sorted(os.path.splitext(f)[0] for f in os.listdir(test_dir))
         out_dir = os.path.join(tmp, "out")
         for mode, meth in methods.items():
@@ -4001,7 +4211,7 @@ def phase_cli(results: dict):
             argv = base + [
                 f"model_dir={out_dir}", f"tester.checkpoint={ckpt}",
                 "dset=musicnet", f"dset.test.path={test_dir}",
-                "dset.test.num_samples=2", f"tester.T={T}",
+                f"dset.test.num_samples={CLI_ITEMS}", f"tester.T={T}",
                 "tester.bandwidth_extension.filter.type=firwin",
                 "tester.bandwidth_extension.filter.order=500",
                 "tester.bandwidth_extension.filter.fc=1000",
@@ -4029,12 +4239,13 @@ def phase_cli(results: dict):
                     raise RuntimeError(f"cli: mode {mode} did not write "
                                        f"{missing}")
                 m = per_mode[mode]
-                items = 1 if mode == "unconditional" else len(names)
+                uncond = mode == "unconditional"
+                items = 1 if uncond else len(names)
                 log(f"cli: {mode} (T={T}): {m['s'] / items:.2f} s per "
-                    f"{'run of 2 clips' if items == 1 else 'item'} (of it "
+                    f"{'run of 2 clips' if uncond else 'item'} (of it "
                     f"{m['dump_s'] / items:.2f} s in trajectory dumps), "
                     f"launches {m['launches']}")
-                need = (("conv5x3", "fused_stage") if mode == "unconditional"
+                need = (("conv5x3", "fused_stage") if uncond
                         else ("conv5x3", "fused_stage", "fused_stage_bwd")
                         + (("filter_fit",) if mode == "blind_bwe" else ()))
                 for n in need:
@@ -4063,22 +4274,9 @@ def phase_cli(results: dict):
             f"{piece} {sec / items:.3f} s" for piece, sec in
             b["split"].items()) + f", rest {rest / items:.3f} s (of "
             f"{b['s'] / items:.3f} s)")
-        sampler, state, gdev, y = replay[0]
-        for rid in (True, False):
-            gen = torch.Generator(device=gdev)
-            gen.set_state(state)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            predict(sampler, gen, y, rid=rid)
-            torch.cuda.synchronize()
-            b[f"replay_rid_{rid}_s"] = time.perf_counter() - t0
-        log(f"cli: blind_bwe's first request replayed: rid=True "
-            f"{b['replay_rid_True_s']:.3f} s, rid=False "
-            f"{b['replay_rid_False_s']:.3f} s")
     finally:
         for owner, name, orig in reversed(undo_parts):
             setattr(owner, name, orig)
-        BlindSampler.predict_blind_bwe = predict
         ulog.save_trajectory = save_trajectory
         for meth, orig in undo:
             setattr(Tester, meth, orig)
@@ -4193,12 +4391,17 @@ def _dev_us(e) -> float:
     return 0.0
 
 
+PROFILE_PRECISIONS = (("bf16", "bf16", {}), ("int8", "int8", {}),
+                      ("int8, JAX API", "int8", INT8_MODES[0][1]))
+
+
 def phase_profile():
     """Where one guided evaluation of a blind request spends its time, in
-    bf16 and in int8: the parts timed with synchronisation (network forward
-    with the graph kept, filter fit, guidance backward), then one whole
-    stage under torch.profiler (kernel time by name and the device's busy
-    share)."""
+    bf16, in int8 on the fused chain and in the JAX API's int8 (the
+    unfused convs C8 and Q8; ``PROFILE_PRECISIONS``): the parts timed with
+    synchronisation (network forward with the graph kept, filter fit,
+    guidance backward), then one whole stage under torch.profiler (kernel
+    time by name, launches and the device's busy share)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -4220,8 +4423,9 @@ def phase_profile():
     Y = apply_stft(y, b.nfft)
     p0 = b.initial_params("cuda")
     x_hat = y + 0.2 * torch.randn(y.shape, device="cuda")
-    for prec in ("bf16", "int8"):
-        model.net.set_precision(prec)
+    for prec, precision, knobs in PROFILE_PRECISIONS:
+        with _Int8Env(knobs):
+            model.net.set_precision(precision)
         s = t.sampler()
         s._stage(x_hat, 0.2, p0, y, Y, None)  # warm-up
         parts = {}
@@ -4303,39 +4507,30 @@ def main(argv=None) -> int:
         return 2
     phases = a.phases.split(",")
     results: dict = {}
+    seconds: dict = {}
+
+    def timed(name, fn):
+        """Run one phase and log its seconds on a line of its own."""
+        t0 = time.perf_counter()
+        fn()
+        seconds[name] = time.perf_counter() - t0
+        log(f"phase {name}: {seconds[name]:.1f} s")
+
     if {"identify", "kernels", "probe", "train", "cli", "capability",
             "q8"} & set(phases):
-        phase_identify(kernels)
-    if "kernels" in phases:
-        phase_kernels(results)
-    if "probe" in phases:
-        phase_probe(results)
-    if "check" in phases:
-        phase_check()
-    if "requests" in phases:
-        phase_requests(results)
-    if "int8modes" in phases:
-        phase_int8modes(results)
-    if "pt" in phases:
-        phase_pt(results)
-    if "long" in phases:
-        phase_long(results)
-    if "train" in phases:
-        phase_train(results)
-    if "quality" in phases:
-        phase_quality(results)
-    if "cli" in phases:
-        phase_cli(results)
-    if "capability" in phases:
-        phase_capability(results)
-    if "iir" in phases:
-        phase_iir(results)
-    if "gates" in phases:
-        phase_gates(results)
-    if "profile" in phases:
-        phase_profile()
-    if "q8" in phases:
-        phase_q8(results)
+        timed("identify", lambda: phase_identify(kernels))
+    for name, fn in (("kernels", phase_kernels), ("probe", phase_probe),
+                     ("check", lambda _: phase_check()),
+                     ("requests", phase_requests),
+                     ("int8modes", phase_int8modes), ("pt", phase_pt),
+                     ("long", phase_long), ("train", phase_train),
+                     ("quality", phase_quality), ("cli", phase_cli),
+                     ("capability", phase_capability), ("iir", phase_iir),
+                     ("gates", phase_gates),
+                     ("profile", lambda _: phase_profile()),
+                     ("q8", phase_q8)):
+        if name in phases:
+            timed(name, lambda: fn(results))
     launches = results.get("launches", {})
     line = []
     for name in SOURCES:
@@ -4350,15 +4545,19 @@ def main(argv=None) -> int:
             "bound_by": ("operations" if r.get("ops_ms", 0.0)
                          >= r.get("bytes_ms", 0.0) else "bytes"),
             "library_ms": r.get("library_ms"),
-            **({"eager_ms": r["eager_ms"]} if "eager_ms" in r else {}),
+            **{k: r[k] for k in ("eager_ms", "device_ms",
+                                 "library_device_ms") if k in r},
             "check": "ok" if r else "not run",
             "launches_from": LAUNCHES_FROM.get(name, (
                 "the bf16 requests" if "requests" in phases
                 else "the long request")),
             "per": PER.get(name, "one guided evaluation, bf16, main-path "
                                  "shapes")})
-    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
-        f"kernels' build included")
+    total = time.perf_counter() - t_start
+    log("phases, seconds: " + ", ".join(f"{k} {v:.1f}"
+                                        for k, v in seconds.items())
+        + f"; outside them {total - sum(seconds.values()):.1f}")
+    log(f"chip_smoke: {total:.1f} s in all, the kernels' build included")
     log(f"card: {smi_line()}")
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

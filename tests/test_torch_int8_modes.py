@@ -269,19 +269,28 @@ def test_int8_launchers_refuse_cpu_tensors():
 
 
 def test_conv_int8_routes():
-    """C8's engine takes every flagship int8 stage shape (C = N in 96, 128,
-    256, rows of at least 16 positions); the tiny widths, short rows and
-    C != N take the tile."""
-    E, T_ = kernels.STAGE_ENGINE, kernels.STAGE_TILE
+    """C8's routes: the stage engine's int8 loop at C = N = 96 with rows of
+    at least 16 positions (the flagship's 96-channel stages), the TMA route
+    at any other C and N that are multiples of 16 (the flagship's 128- and
+    256-channel stages, the tiny widths, short rows), the tile elsewhere.
+    The engine's cut at 96 channels: one channel tile, 15 ring stages; the
+    TMA cut of the deepest stage: one 256-wide tile of outputs, two
+    128-channel chunks a tap (30 ring stages)."""
+    TMA, TILE, E = kernels.C8_TMA, kernels.C8_TILE, kernels.C8_ENGINE
     assert kernels.conv_int8_route(1, 128, 1024, 96, 96, 4) == E
-    assert kernels.conv_int8_route(4, 448, 20, 256, 256, 1) == E
+    assert kernels.conv_int8_route(4, 448, 20, 256, 256, 1) == TMA
     for shape in ((1, 64, 256, 16, 16, 1), (1, 64, 256, 32, 32, 2),
                   (1, 64, 8, 96, 96, 1), (1, 64, 64, 96, 128, 1),
                   (1, 64, 64, 160, 160, 1)):
-        assert kernels.conv_int8_route(*shape) == T_, shape
-    plan = kernels.stage_plan(kernels.STAGE_C8, torch.int8, 1, 448, 20, 256,
-                              1)
-    assert (plan.splits, plan.n_it) == (2, 40)
+        assert kernels.conv_int8_route(*shape) == TMA, shape
+    for shape in ((1, 64, 64, 100, 100, 1), (1, 64, 64, 96, 40, 1)):
+        assert kernels.conv_int8_route(*shape) == TILE, shape
+    plan = kernels.stage_plan(kernels.STAGE_C8, torch.int8, 1, 128, 1024,
+                              96, 4)
+    assert (plan.route, plan.splits, plan.n_it) == (kernels.STAGE_ENGINE, 1,
+                                                    15)
+    plan = kernels.conv_int8_plan(1, 448, 20, 256, 256, 1)
+    assert (plan.bn, plan.n_tiles, plan.n_k) == (256, 1, 30)
 
 
 # ------------------------------------------------------------- the blocks

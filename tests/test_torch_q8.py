@@ -53,7 +53,12 @@ def test_q8_plan_cuts_every_element_once(B, per_b, dtype, card):
     plan = kernels.q8_plan(B, per_b, dtype, sms, per_sm)
     assert 1 <= plan.grid <= sms * per_sm
     assert plan.chunk % kernels.Q8_GROUP == 0
-    assert plan.vec * torch.tensor([], dtype=dtype).element_size() == 16
+    # the kernel loads a step of Q8_GROUP elements as 16-byte vectors (two
+    # of bf16, four of fp32): a step is whole vectors, and so is the offset
+    # of every unit's start within its item
+    size = torch.tensor([], dtype=dtype).element_size()
+    assert kernels.Q8_GROUP * size % 16 == 0
+    assert plan.chunk * size % 16 == 0
     spans = _spans(plan)
     # the units tile the flattened x in order: each element in one unit
     assert spans[0][0] == 0 and spans[-1][1] == B * per_b
