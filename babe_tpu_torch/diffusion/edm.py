@@ -6,8 +6,10 @@ the rho-schedule with the reference's (nb_steps-1) divisor and t[-1] = 0,
 the warm-start schedule and the per-step stochasticity gamma; and the
 training half: training-sigma sampling (the schedule distribution with
 ro_train, or lognormal), the prior, the training preconditioning and the
-per-sample loss with the optional CQT DC correction.  Schedules are computed
-in float32, as the JAX package computes them.  Random draws take an explicit
+per-sample loss with the optional CQT DC correction and, under
+``diff_params.aweighting.use_aweighting``, the A-weighting FIR applied to
+the error after it (``ops/aweighting.py``).  Schedules are computed in
+float32, as the JAX package computes them.  Random draws take an explicit
 ``torch.Generator`` (drawn on its device); the JAX package's ``jax.random``
 keys give other numbers, so a test hands both sides the same sigma and
 noise.
@@ -19,6 +21,9 @@ from dataclasses import dataclass, replace
 from typing import Any
 
 import torch
+
+from babe_tpu_torch.ops.aweighting import aweighting_fir
+from babe_tpu_torch.ops.fir import apply_fir
 
 
 @dataclass(frozen=True)
@@ -60,18 +65,23 @@ class EDM:
     to :meth:`denoiser` or :meth:`loss_fn` is any callable
     ``net(x[B,T], cnoise[B,1])``."""
 
-    def __init__(self, p: EDMParams, cqt_hpf=None):
+    def __init__(self, p: EDMParams, aweighting: bool = False,
+                 aweighting_ntaps: int = 101, sample_rate: float = 22050.0,
+                 cqt_hpf=None):
         self.p = p
+        self.use_aweighting = aweighting
+        self._aw_taps = (aweighting_fir(sample_rate, aweighting_ntaps)
+                         if aweighting else None)
         self.cqt_hpf = cqt_hpf
 
     @classmethod
     def from_config(cls, args: Any, cqt_hpf=None) -> "EDM":
         dp = args.diff_params
-        if bool(dp.get_path("aweighting.use_aweighting", False)):
-            raise NotImplementedError(
-                "A-weighted EDM loss is not ported yet: it needs "
-                "ops/aweighting.py (ROADMAP.md)")
-        return cls(EDMParams.from_config(dp), cqt_hpf=cqt_hpf)
+        return cls(
+            EDMParams.from_config(dp),
+            aweighting=bool(dp.get_path("aweighting.use_aweighting", False)),
+            aweighting_ntaps=int(dp.get_path("aweighting.ntaps", 101)),
+            sample_rate=float(args.exp.sample_rate), cqt_hpf=cqt_hpf)
 
     # ------------------------------------------------------------ precond
 
@@ -91,12 +101,13 @@ class EDM:
 
     def denoiser(self, xn, net, sigma):
         """D(x; sigma) = cskip*x + cout*net(cin*x, cnoise); sigma [B,1],
-        [B] or a scalar."""
+        [B] or a scalar (one sigma is broadcast over the batch)."""
         sigma = torch.as_tensor(sigma, dtype=torch.float32, device=xn.device)
         if sigma.ndim == 0:
             sigma = sigma[None, None]
         elif sigma.ndim == 1:
             sigma = sigma[:, None]
+        sigma = sigma.expand(xn.shape[0], 1)
         return self.cskip(sigma) * xn + self.cout(sigma) * net(
             self.cin(sigma) * xn, self.cnoise(sigma))
 
@@ -173,4 +184,6 @@ class EDM:
         error = net(inp, cnoise) - target
         if use_cqt_DC_correction and self.cqt_hpf is not None:
             error = self.cqt_hpf(error)
+        if self.use_aweighting:
+            error = apply_fir(error, self._aw_taps)
         return error**2, sigma

@@ -6,6 +6,12 @@ the JAX tree (``downs_0_2.H_0.conv.kernel``, ``norm_1.gamma``, ...), so the
 weight bridge (``utils/weights.py``) is a mechanical rename.  Parameters are
 fp32; compute follows the input dtype (bf16 at the flagship config).
 
+A ``ResnetBlock`` given an ``attention_dict`` runs the gated time attention
+first (``TimeAttentionBlock`` with its T5 ``RelativePositionBias``, in the
+JAX order; its products are plain matmuls and einsums, as the JAX package
+leaves them to XLA).  Its fp32 position bias promotes bf16 activations to
+fp32 from there on, as jnp's type promotion does in the JAX network.
+
 The (5,3) dilation stack of a ``ResnetBlock`` runs the fused-chain form of
 the JAX ``_fused_dil_chain``: each stage's GroupNorm denominators come from
 the moments the previous stage emitted, and the stage itself is one
@@ -296,19 +302,127 @@ class AddFreqEncodingRFF(nn.Module):
         return torch.cat([x, enc.to(x.dtype)], dim=-1)
 
 
-class TimeAttentionBlock(nn.Module):
-    """Not ported yet: the flagship config runs without attention."""
+class Conv1d(nn.Module):
+    """1-D conv of kernel 1 on (B, T, C), the JAX ``Conv1d`` (a flax
+    ``nn.Conv``) as the attention's qk projection uses it: ``conv.kernel``
+    (1, in, out), optional ``conv.bias``; computed in the input's dtype."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "TimeAttentionBlock is not ported yet (configs with "
-            "attention_layers set wait for a later slice of the port)")
+    def __init__(self, in_features: int, features: int,
+                 use_bias: bool = False, init_weight: float = INIT_W):
+        super().__init__()
+        self.init_weight = init_weight
+        self.conv = _ConvParams((1, in_features, features), features,
+                                use_bias)
+
+    def reset_parameters(self, gen=None) -> None:
+        _kaiming_uniform_(self.conv.kernel, self.init_weight, gen)
+        if self.conv.bias is not None:
+            nn.init.zeros_(self.conv.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = x @ self.conv.kernel[0].to(x.dtype)
+        if self.conv.bias is not None:
+            y = y + self.conv.bias.to(x.dtype)
+        return y
+
+
+def _relative_position_bucket(rel_pos: torch.Tensor, num_buckets: int,
+                              max_distance: int) -> torch.Tensor:
+    """T5 bucketing of integer relative positions: half the buckets for
+    each sign, exact below a quarter of them, logarithmic up to
+    ``max_distance`` and clamped past it; the float32 log's integer cast
+    truncates toward zero, as ``astype(int32)`` does."""
+    num_buckets //= 2
+    ret = (rel_pos >= 0).to(torch.int32) * num_buckets
+    n = rel_pos.abs()
+    max_exact = num_buckets // 2
+    is_small = n < max_exact
+    val_if_large = max_exact + (
+        torch.log(torch.clamp(n, min=1).to(torch.float32) / max_exact)
+        / math.log(max_distance / max_exact)
+        * (num_buckets - max_exact)
+    ).to(torch.int32)
+    val_if_large = torch.clamp(val_if_large, max=num_buckets - 1)
+    return ret + torch.where(is_small, n.to(torch.int32), val_if_large)
+
+
+class RelativePositionBias(nn.Module):
+    """A learned bias per head and T5 bucket of the key-query offset:
+    ``relative_attention_bias`` (num_buckets, num_heads), N(0, 1) init."""
+
+    def __init__(self, num_buckets: int, max_distance: int, num_heads: int):
+        super().__init__()
+        self.num_buckets, self.max_distance = num_buckets, max_distance
+        self.relative_attention_bias = nn.Parameter(
+            torch.empty(num_buckets, num_heads))
+
+    def reset_parameters(self, gen=None) -> None:
+        with torch.no_grad():
+            self.relative_attention_bias.copy_(torch.randn(
+                self.relative_attention_bias.shape, generator=gen))
+
+    def forward(self, num_queries: int, num_keys: int) -> torch.Tensor:
+        """The bias [1, heads, num_queries, num_keys] (fp32)."""
+        i, j = num_queries, num_keys
+        dev = self.relative_attention_bias.device
+        q_pos = torch.arange(j - i, j, device=dev)
+        k_pos = torch.arange(j, device=dev)
+        bucket = _relative_position_bucket(k_pos[None, :] - q_pos[:, None],
+                                           self.num_buckets,
+                                           self.max_distance)
+        bias = self.relative_attention_bias[bucket.long()]  # [i, j, heads]
+        return bias.permute(2, 0, 1)[None]
+
+
+class TimeAttentionBlock(nn.Module):
+    """Per-head attention over time with the frequency axis flattened into
+    the features, on (B, F, T, C) with F = Fdim: a 1x1 projection to
+    ``num_heads`` channels, the qk projection, q k^T plus the relative
+    position bias, scaled by Fdim^-0.5, softmax, times v (the projected
+    input itself), and a 1x1 projection back to C channels; in the JAX
+    order.  The fp32 bias promotes a bf16 input's scores, and so the
+    block's output, to fp32, as jnp's type promotion does."""
+
+    def __init__(self, attention_dict, Fdim: int, dim: int):
+        super().__init__()
+        ad = attention_dict
+        heads = int(ad["num_heads"])
+        self.heads, self.Fdim = heads, Fdim
+        N = heads * Fdim
+        self.proj_in = Conv2d(dim, heads, (1, 1))
+        self.qk = Conv1d(N, 2 * N, use_bias=bool(ad.get("bias_qkv", False)))
+        if ad.get("use_rel_pos", True):
+            self.rel_pos = RelativePositionBias(
+                int(ad["rel_pos_num_buckets"]),
+                int(ad["rel_pos_max_distance"]), heads)
+        else:
+            self.rel_pos = None
+        self.proj_out = Conv2d(heads, dim, (1, 1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, F, T, C = x.shape
+        heads, Fd = self.heads, self.Fdim
+        h = self.proj_in(x)  # [B, F, T, heads]
+        hf = h.permute(0, 2, 3, 1).reshape(B, T, heads * F)
+        v = hf.reshape(B, T, heads, F).transpose(1, 2)  # [B, h, T, F]
+        qk = self.qk(hf).reshape(B, T, heads, 2 * Fd).transpose(1, 2)
+        q, k = qk.split(Fd, dim=-1)
+        sim = torch.einsum("bhnd,bhmd->bhnm", q, k)
+        if self.rel_pos is not None:
+            sim = sim + self.rel_pos(T, T)
+        sim = sim * (Fd**-0.5)
+        attn = torch.softmax(sim, dim=-1)
+        out = torch.einsum("bhnm,bhmd->bhnd", attn, v.to(attn.dtype))
+        return self.proj_out(out.permute(0, 3, 2, 1))  # [B, F, T, heads]
 
 
 class ResnetBlock(nn.Module):
     """Sigma-conditioned dilated-conv residual block.
 
-    (5,3) blocks with norm run the fused dilation chain (one ``fused_stage``
+    With an ``attention_dict`` the block first runs the gated time
+    attention: GroupNorm (``norm2``) -> sigma affine (``affine2``) ->
+    ``TimeAttentionBlock`` (``attn_block``) -> gated residual (``gate2``)
+    x 1/sqrt2.  (5,3) blocks with norm run the fused dilation chain (one ``fused_stage``
     per dilation, or one ``fused_stage_int8`` when the block is in int8);
     every other block runs the plain loop GroupNorm -> sigma affine ->
     gelu -> conv -> gated residual (a 1x1 matmul, or K4 for other
@@ -319,8 +433,6 @@ class ResnetBlock(nn.Module):
                  proj_place: str = "before", attention_dict=None,
                  Fdim: int = 128, int8: bool = False):
         super().__init__()
-        if attention_dict is not None:
-            TimeAttentionBlock(attention_dict, Fdim)
         self.dim, self.dim_out = dim, dim_out
         self.use_norm, self.num_dils = use_norm, num_dils
         self.kernel_size = tuple(kernel_size)
@@ -329,6 +441,12 @@ class ResnetBlock(nn.Module):
         self.N = N
         if dim != N:
             self.proj_in = Conv2d(dim, N, (1, 1))
+        self.attention = attention_dict is not None
+        if self.attention:
+            self.affine2 = Linear(emb_dim, N)
+            self.gate2 = Linear(emb_dim, N, init_weight=INIT_ZERO)
+            self.norm2 = BiasFreeGroupNorm(N)
+            self.attn_block = TimeAttentionBlock(attention_dict, Fdim, N)
         for i in range(num_dils):
             setattr(self, f"affine_{i}", Linear(emb_dim, N))
             setattr(self, f"gate_{i}",
@@ -381,6 +499,12 @@ class ResnetBlock(nn.Module):
         x = x_in
         if self.dim != self.N:
             x = self.proj_in(x)
+        if self.attention:
+            gamma = self.affine2(sigma_emb)
+            scale = self.gate2(sigma_emb)
+            h = self.norm2(x) * (gamma[:, None, None, :] + 1.0)
+            h = self.attn_block(h)
+            x = (x + h * scale[:, None, None, :]) * INV_SQRT2
         if self.unfused_int8:
             x = self._unfused_dil_int8(x, sigma_emb)
         elif self.fused:
@@ -453,13 +577,15 @@ class ResnetBlock(nn.Module):
             std = torch.sqrt(torch.clamp(var, min=0.0))
             return torch.repeat_interleave(std + GN_EPS, cg, dim=-1)
 
-        # every stage's sigma affine and gate as one matmul, and the stages'
-        # GroupNorm gains and kernels stacked once per block: the same
-        # arithmetic as the per-stage modules in a fraction of the launches
-        nd, dt = self.num_dils, x.dtype
+        # every stage's sigma affine and gate as one matmul (in the
+        # embedding's dtype, as the Linear modules compute them), and the
+        # stages' GroupNorm gains and kernels stacked once per block: the
+        # same arithmetic as the per-stage modules in a fraction of the
+        # launches
+        nd, dt, et = self.num_dils, x.dtype, sigma_emb.dtype
         lins = [self._sub(k, i) for k in ("affine", "gate") for i in range(nd)]
-        kern = torch.cat([m.kernel for m in lins], dim=1).to(dt)
-        bias = torch.cat([m.bias for m in lins]).to(dt)
+        kern = torch.cat([m.kernel for m in lins], dim=1).to(et)
+        bias = torch.cat([m.bias for m in lins]).to(et)
         ag = (sigma_emb @ kern + bias).float().view(B, 2, nd, N)
         gains = torch.stack([self._sub("norm", i).gamma for i in range(nd)])
         num = gains.float()[None] * (ag[:, 0] + 1.0)  # (B, nd, N)

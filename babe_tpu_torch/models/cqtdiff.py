@@ -11,10 +11,15 @@ Layout is channels-last (B, F, T, C); the octave list is ordered lowest
 octave first and consumed highest first, as in the JAX package.
 
 ``remat`` rematerializes every ``ResnetBlock`` in the backward pass (the
-JAX ``nn.remat`` of the block, policy "full"): under autograd each block
-runs through ``torch.utils.checkpoint`` (non-reentrant), so only block
-boundaries are kept and each block's forward runs again in the backward.
-Training at the flagship config uses it; serving does not.
+JAX ``nn.remat`` of the block): under autograd each block runs through
+``torch.utils.checkpoint`` (non-reentrant), so only block boundaries are
+kept and each block's forward runs again in the backward.  With
+``remat_policy="full"`` everything in the block is recomputed; with
+``"save_convs"`` the outputs of its ``Conv2d`` convs are kept from the
+first pass and the recompute runs only the rest (``ConvTape``: the JAX
+policy ``save_only_these_names("conv_out")``; the fused dilation stages
+carry no tag there and are recomputed).  Any other policy is "full", as
+in JAX.  Training at the flagship config uses remat; serving does not.
 
 ``precision`` is an attribute of the network: ``"int8"`` reads the JAX
 package's int8 knobs from the environment when it is set
@@ -46,13 +51,15 @@ from torch.utils.checkpoint import checkpoint
 from babe_tpu_torch.models.blocks import (
     INV_SQRT2,
     AddFreqEncodingRFF,
+    Conv1d,
     Conv2d,
     Linear,
+    RelativePositionBias,
     ResnetBlock,
     RFF_MLP_Block,
     resample_time,
 )
-from babe_tpu_torch.ops.conv_kernels import Int8Config
+from babe_tpu_torch.ops.conv_kernels import ConvTape, Int8Config
 from babe_tpu_torch.ops.cqt import CQT, get_cqt
 
 PRECISIONS = (None, "bf16", "int8")
@@ -76,11 +83,8 @@ class CQTDiffPlusNet(nn.Module):
                  precision: str | None = None, remat: bool = False,
                  remat_policy: str = "full"):
         super().__init__()
-        if remat and remat_policy != "full":
-            raise NotImplementedError(
-                f"remat_policy={remat_policy!r} is not ported (only 'full'; "
-                "see ROADMAP.md)")
         self.remat = bool(remat)
+        self.remat_policy = str(remat_policy)
         n, bpo = num_octs, bins_per_oct
         self.num_octs, self.bins_per_oct = n, bpo
         self.Ns, self.num_dils = tuple(Ns), tuple(num_dils)
@@ -149,7 +153,7 @@ class CQTDiffPlusNet(nn.Module):
         """Seeded EDM init of every weight and RFF buffer (on the CPU
         generator ``gen``; GroupNorm gains 1, biases 0)."""
         for m in self.modules():
-            if isinstance(m, (Linear, Conv2d)):
+            if isinstance(m, (Linear, Conv2d, Conv1d, RelativePositionBias)):
                 m.reset_parameters(gen)
             elif isinstance(m, (RFF_MLP_Block, AddFreqEncodingRFF)):
                 m.reset_buffers(gen)
@@ -157,9 +161,17 @@ class CQTDiffPlusNet(nn.Module):
     def _block(self, name: str, x, sigma_emb):
         """Run the ResnetBlock ``name``, rematerialized under ``remat``."""
         blk = getattr(self, name)
-        if self.remat and torch.is_grad_enabled():
+        if not (self.remat and torch.is_grad_enabled()):
+            return blk(x, sigma_emb)
+        if self.remat_policy != "save_convs":
             return checkpoint(blk, x, sigma_emb, use_reentrant=False)
-        return blk(x, sigma_emb)
+        tape = ConvTape()
+
+        def run(x_, s_):
+            with tape.active():
+                return blk(x_, s_)
+
+        return checkpoint(run, x, sigma_emb, use_reentrant=False)
 
     def forward(self, coeffs, sigma):
         n, bpo = self.num_octs, self.bins_per_oct

@@ -142,10 +142,75 @@ def _conv_dw_any(x, g, kshape, dilation) -> torch.Tensor:
     return conv_dw_ref(x, g, kshape, dilation)
 
 
+# ------------------------------------------------------- save_convs remat
+
+
+class ConvTape:
+    """The conv outputs of one rematerialized block under
+    ``remat_policy="save_convs"`` (the JAX ``nn.remat`` policy
+    ``save_only_these_names("conv_out")``, which saves what ``Conv2d``
+    tags): the block runs under ``active()``.  On its first pass every conv
+    of a ``Conv2d`` keeps its output; when the backward recomputes the
+    block, each returns the kept output instead of running again.  A
+    conv's backward needs its input and weight, not its output, so it is
+    unchanged; the elementwise work and the fused stages around the convs
+    are recomputed, as in JAX, where the stage's internals carry no
+    tag."""
+
+    def __init__(self):
+        self.outs: list[torch.Tensor] = []
+        self.pos: int | None = None  # None while recording
+
+    @contextlib.contextmanager
+    def active(self):
+        global _TAPE
+        prev, _TAPE = _TAPE, self
+        try:
+            yield
+        finally:
+            _TAPE = prev
+            self.pos = 0
+
+    def take(self, compute):
+        if self.pos is None:
+            y = compute()
+            self.outs.append(y.detach())
+            return y
+        y = self.outs[self.pos]
+        self.pos += 1
+        return y.detach()
+
+
+_TAPE: ConvTape | None = None
+
+
+def _taped(compute):
+    """``compute()``, or inside an active ``ConvTape`` its kept output."""
+    return compute() if _TAPE is None else _TAPE.take(compute)
+
+
+class _Conv1x1(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w2):
+        ctx.save_for_backward(x, w2)
+        return _taped(lambda: torch.matmul(x, w2))
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w2 = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.matmul(g, w2.t())
+        if ctx.needs_input_grad[1]:
+            dw = x.reshape(-1, x.shape[-1]).t() @ g.reshape(-1, g.shape[-1])
+        return dx, dw
+
+
 def conv1x1(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """1x1 conv as a matmul (w: [1,1,Cin,Cout]); output in x.dtype.  The
-    matmul accumulates in fp32 on both the CPU and the card."""
-    return torch.matmul(x, w[0, 0].to(x.dtype))
+    matmul accumulates in fp32 on both the CPU and the card; its backward
+    is the matmul's own (dx = g w^T, dw = x^T g)."""
+    return _Conv1x1.apply(x, w[0, 0].to(x.dtype))
 
 
 # ------------------------------------------------------------------ gelu
@@ -226,7 +291,7 @@ class _Conv5x3(torch.autograd.Function):
     def forward(ctx, x, w, d):
         ctx.save_for_backward(x if ctx.needs_input_grad[1] else None, w)
         ctx.d = d
-        return _conv_any(x, w, d)
+        return _taped(lambda: _conv_any(x, w, d))
 
     @staticmethod
     def backward(ctx, g):
@@ -741,7 +806,8 @@ class _ConvInt8(torch.autograd.Function):
             qx, sx = quant_act_per_item(x)
         else:
             qx, sx = quant_act_with_scale(x, bound)
-        out = _conv_int8_q(qx, sx, qw.q, qw.qt, qw.s, d, x.dtype)
+        out = _taped(lambda: _conv_int8_q(qx, sx, qw.q, qw.qt, qw.s, d,
+                                          x.dtype))
         ctx.save_for_backward(qx, sx, w)
         ctx.d, ctx.qwT = d, qwT
         return out
@@ -804,20 +870,24 @@ def _int_mm(qx2: torch.Tensor, qwt: torch.Tensor) -> torch.Tensor:
     return (qx2.double() @ qwt.t().double()).round().to(torch.int32)
 
 
+def _dot1x1_int8_fwd(x, w, qw: QuantKernel) -> torch.Tensor:
+    B, F, T, C = x.shape
+    N = w.shape[3]
+    qx, sx = quant_act_per_item(x)
+    acc = _int_mm(qx.reshape(-1, C), qw.qt).view(B, F, T, N)
+    if acc.is_cuda:
+        return _k.launch_act_rescale(acc, int8_scale(sx, qw.s), x.dtype)
+    return int8_rescale_ref(acc, sx, qw.s, x.dtype)
+
+
 class _Dot1x1Int8(torch.autograd.Function):
     """dot1x1_int8: an int8 1x1 forward; the backward is the plain 1x1
     vjp at the saved x and w (JAX ``_dot1x1_int8_bwd``)."""
 
     @staticmethod
     def forward(ctx, x, w, qw: QuantKernel):
-        B, F, T, C = x.shape
-        N = w.shape[3]
-        qx, sx = quant_act_per_item(x)
-        acc = _int_mm(qx.reshape(-1, C), qw.qt).view(B, F, T, N)
         ctx.save_for_backward(x, w)
-        if acc.is_cuda:
-            return _k.launch_act_rescale(acc, int8_scale(sx, qw.s), x.dtype)
-        return int8_rescale_ref(acc, sx, qw.s, x.dtype)
+        return _taped(lambda: _dot1x1_int8_fwd(x, w, qw))
 
     @staticmethod
     def backward(ctx, g):

@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from babe_tpu_torch import kernels as _k
-from babe_tpu_torch.ops.conv_kernels import _conv_dw_any, _flip_io
+from babe_tpu_torch.ops.conv_kernels import _conv_dw_any, _flip_io, _taped
 from babe_tpu_torch.ops.conv_kernels import conv_taps as conv_ref
 
 
@@ -34,7 +34,7 @@ class _DilatedConv(torch.autograd.Function):
     def forward(ctx, x, w, dilation):
         ctx.save_for_backward(x if ctx.needs_input_grad[1] else None, w)
         ctx.dilation = dilation
-        return _conv_any(x, w, dilation)
+        return _taped(lambda: _conv_any(x, w, dilation))
 
     @staticmethod
     def backward(ctx, g):

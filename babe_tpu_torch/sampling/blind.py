@@ -9,7 +9,10 @@ Counterpart of ``babe_tpu/sampling/blind.py``.  Per Heun stage:
      sizes, sequential monotonicity clamps and a tolerance exit; on the
      card the whole loop is one kernel, on the CPU a loop of ``max_iter``
      iterations with a ``done`` mask (once done is set the parameters
-     freeze), so the host never waits on a value,
+     freeze), so the host never waits on a value; with
+     ``blind_bwe.sigma_den_estimate`` > 0 the fit sees the denoised
+     estimate plus that much white noise from the sampler's generator,
+     and the guidance below keeps the clean estimate,
   3. reconstruction-guidance gradient through the network with the updated
      filter (``torch.autograd.grad`` with respect to the input only),
   4. Tweedie score plus guidance scaled xi/(normguide+1e-6)·rec/t, then the
@@ -65,14 +68,11 @@ class BlindConfig:
     init_fc: tuple = (280, 285, 290, 295, 300)
     init_A: tuple = (-15, -17, -20, -25, -30)
     freq_weighting_filter: str = "sqrt"
+    sigma_den_estimate: float = 0.0
 
     @classmethod
     def from_args(cls, args) -> "BlindConfig":
         bb = args.tester.blind_bwe
-        if float(bb.get("sigma_den_estimate", 0.0) or 0.0) > 0:
-            raise NotImplementedError(
-                "blind_bwe.sigma_den_estimate > 0 (a noise-regularised "
-                "filter fit) is not ported yet")
         fcmax = bb.get("fcmax", "nyquist")
         if fcmax == "nyquist":
             fcmax = float(args.exp.sample_rate) / 2
@@ -93,6 +93,8 @@ class BlindConfig:
             init_A=tuple(bb.initial_conditions.A),
             freq_weighting_filter=str(args.tester.posterior_sampling.get(
                 "freq_weighting_filter", "sqrt")),
+            sigma_den_estimate=float(bb.get("sigma_den_estimate", 0.0)
+                                     or 0.0),
         )
 
     def initial_params(self, device="cpu") -> torch.Tensor:
@@ -199,9 +201,14 @@ class BlindSampler(Sampler):
     def degradation_fcA(self, x, params):
         return D.make_fcA(self.freqs, self.blind.nfft)(x, params)
 
-    def _stage(self, x_hat, t_cur: float, params, y, Y, gen):
+    def _stage(self, x_hat, t_cur: float, params, y, Y, gen,
+               den_noise=None):
         """One guided score evaluation with a filter re-fit.  Returns
-        (score, params, denoised estimate)."""
+        (score, params, denoised estimate).  With ``sigma_den_estimate``
+        > 0 the fit sees its own STFT of the denoised estimate plus that
+        much white noise (``den_noise``, drawn from ``gen`` after the
+        observation noise unless given), and the guidance gradient keeps
+        the clean estimate."""
         cfg, b = self.cfg, self.blind
         y_obs = y
         if cfg.snr_observations is not None:
@@ -209,13 +216,21 @@ class BlindSampler(Sampler):
         with torch.enable_grad():
             xg = x_hat.detach().requires_grad_(True)
             x_den = self._denoise(xg, t_cur)
-            # one analysis STFT of x_den serves the filter fit (on its
-            # detached copy) and the guidance gradient
-            X = apply_stft(x_den, b.nfft)
-            params = self.fit_params(X, Y, params)
-            H = design_filter(params[0], params[1], self.freqs)
-            xf = apply_filter_istft(X, H, b.nfft)[..., :x_den.shape[-1]]
-            val = cfg.norm_fn(y_obs, xf)
+            if b.sigma_den_estimate > 0:
+                if den_noise is None:
+                    den_noise = _randn(x_den.shape, gen, x_den.device)
+                Xden = apply_stft(x_den.detach()
+                                  + b.sigma_den_estimate * den_noise, b.nfft)
+                params = self.fit_params(Xden, Y, params)
+                val = cfg.norm_fn(y_obs, self.degradation_fcA(x_den, params))
+            else:
+                # one analysis STFT of x_den serves the filter fit (on its
+                # detached copy) and the guidance gradient
+                X = apply_stft(x_den, b.nfft)
+                params = self.fit_params(X, Y, params)
+                H = design_filter(params[0], params[1], self.freqs)
+                xf = apply_filter_istft(X, H, b.nfft)[..., :x_den.shape[-1]]
+                val = cfg.norm_fn(y_obs, xf)
             (rec,) = torch.autograd.grad(val, xg)
         x_den = x_den.detach()
         normguide = rec.norm() / cfg.audio_len**0.5

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 from babe_tpu_torch.data import datasets as _ds
 from babe_tpu_torch.diffusion.edm import EDM
+from babe_tpu_torch.diffusion.edm_eps import EDMEps
+from babe_tpu_torch.diffusion.edm_pd import EDMPD
 from babe_tpu_torch.models.cqtdiff import CQTDiffPlus
 from babe_tpu_torch.sampling.blind import BlindSampler
 from babe_tpu_torch.sampling.heun import Sampler
@@ -24,7 +26,12 @@ _NETWORKS = {
     ("cqtdiff", "CQTDiffPlus"): CQTDiffPlus,
     ("cqtdiff+", "Unet_CQT_oct_with_attention"): CQTDiffPlus,
 }
-_DIFF_PARAMS = {("edm", "EDM"): EDM}
+# the JAX callables and the reference's names (the A-weighted variant is
+# the EDM class with aweighting.use_aweighting set)
+_DIFF_PARAMS = {
+    ("edm", "EDM"): EDM, ("edm_eps", "EDMEps"): EDMEps,
+    ("edm_pd", "EDMPD"): EDMPD, ("edm_aweighting", "EDM"): EDM,
+    ("edm_eps", "EDM"): EDMEps, ("edm_PD", "EDM"): EDMPD}
 _DATASETS = {("datasets", c.__name__): c for c in (
     _ds.AudioFolderDataset, _ds.MaestroDataset, _ds.MaestroDatasetFs,
     _ds.CocoChoralesDataset)}

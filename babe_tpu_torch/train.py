@@ -5,13 +5,17 @@
         tester.do_test=false
 
 Counterpart of the repository's ``train.py``: the same ``conf/`` overrides,
-the training stream, network, EDM and trainer built from the config, the
-loop for ``exp.total_its`` steps (forever when unset) and a final
-checkpoint that both packages' loaders read.  The tester demos of heavy
-logging are not ported: a run that would reach
-``logging.heavy_log_interval`` needs ``tester.do_test=false``.  It runs on
-the card; the override ``device=cpu`` runs the plain PyTorch path on the
-CPU.
+the training stream, network, diffusion family (``diff_params=edm``,
+``edm_aweighting``, ``edm_eps`` or ``edm_PD``) and trainer built from the
+config, the loop for ``exp.total_its`` steps (forever when unset) and a
+final checkpoint that both packages' loaders read.  With
+``diff_params=edm_PD diff_params.PD.teacher_checkpoint=<.ckpt>`` a second
+network of the same config holds the teacher (the checkpoint's EMA, else
+its params, and its buffers), frozen, and the trainer distills it at
+``diff_params.PD.stage``.  With ``tester.do_test`` a tester on its own
+network runs the demos every ``logging.heavy_log_interval`` steps.  It
+runs on the card; the override ``device=cpu`` runs the plain PyTorch path
+on the CPU.
 """
 
 from __future__ import annotations
@@ -31,11 +35,14 @@ def _main(args, device="cuda"):
     dset = setup_dataset(args)
     model = setup_network(args)
     diff_params = setup_diff_parameters(args, cqt_hpf=model.apply_hpf_DC)
+    teacher = _load_teacher(args, device)
+    tester = _demo_tester(args, diff_params, device)
     trainer_cls = trainer_class(args.exp.get(
         "trainer_callable", "training.trainer.Trainer"))
     print(f"training on 1 device ({device}), batch {int(args.exp.batch)}")
     try:
-        trainer = trainer_cls(args, dset, model, diff_params, device=device)
+        trainer = trainer_cls(args, dset, model, diff_params, device=device,
+                              tester=tester, teacher=teacher)
         print(f"total params: {trainer.total_params / 1e6:.2f} M")
         total_its = args.exp.get("total_its", None)
         trainer.training_loop(
@@ -45,6 +52,50 @@ def _main(args, device="cuda"):
     finally:
         dset.close()
     return trainer
+
+
+def _load_teacher(args, device):
+    """The frozen PD teacher of ``diff_params.PD.teacher_checkpoint`` (a
+    ``.ckpt``: its EMA, else its params, and its buffers) in a network of
+    the same config on ``device``, or None when none is configured."""
+    path = args.get_path("diff_params.PD.teacher_checkpoint", None)
+    if path in (None, "None", ""):
+        return None
+    from babe_tpu_torch.setup import setup_network
+    from babe_tpu_torch.testers.tester import read_checkpoint
+    from babe_tpu_torch.utils.weights import load_flax
+
+    payload = read_checkpoint(str(path))
+    teacher = setup_network(args)
+    load_flax(teacher.net, payload.get("ema", payload["params"]),
+              payload.get("buffers", {}))
+    teacher.to(device).eval().requires_grad_(False)
+    print(f"loaded PD teacher from {path}")
+    return teacher
+
+
+def _demo_tester(args, diff_params, device):
+    """The tester of the heavy-logging demos on a network of its own (the
+    trainer's EMA is loaded into it at each demo), without remat, or None
+    unless ``tester.do_test``."""
+    if not bool(args.get_path("tester.do_test", False)):
+        return None
+    from babe_tpu_torch.data.datasets import setup_dataset_test
+    from babe_tpu_torch.setup import setup_network
+    from babe_tpu_torch.testers.tester import Tester
+
+    test_set = None
+    if args.get_path("dset.test.callable", None):
+        try:
+            test_set = setup_dataset_test(args)
+        except (FileNotFoundError, AssertionError) as e:
+            # the unconditional demo needs no test set; inpainting and
+            # bwe say that it is missing
+            print(f"warning: test set unavailable ({e}); the demos run "
+                  "without it")
+    net = setup_network(args)
+    net.net.remat = False
+    return Tester(args, net, diff_params, device=device, test_set=test_set)
 
 
 def main(argv=None):

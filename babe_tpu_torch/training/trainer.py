@@ -34,11 +34,21 @@ weights from the model's seeded init.  Checkpoints are the JAX trainer's
 pickles: params, buffers, EMA and Adam's state in the JAX layout
 (``utils/weights.py``), readable by both packages' loaders.
 
-Not ported, each raising ``NotImplementedError`` naming ROADMAP.md when
-configured: the tester demos of heavy logging (a run that would reach
-``logging.heavy_log_interval`` with ``tester.do_test`` on), the
-progressive-distillation teacher and the orbax checkpoint backend.  The
-trainer runs on one device.
+With a ``teacher`` (a frozen network of the same config, as
+``babe_tpu_torch.train`` loads it from ``diff_params.PD.teacher_checkpoint``)
+the step trains by progressive distillation: EDMPD's ``loss_fn_PD`` at the
+stage ``diff_params.PD.stage``, the teacher's two ODE steps without
+autograd.  With a ``tester`` (its own network), ``heavy_logging`` runs the
+tester's demos from the EMA weights every ``logging.heavy_log_interval``
+steps: an unconditional sample and its spectrogram PNG, and inpainting
+and informed BWE when ``tester.modes`` lists them; the demos draw from the
+tester's generator, so the training draws do not move.  A failed demo
+prints its traceback and training goes on, unless
+``logging.strict_demos`` or ``BABE_STRICT_DEMOS`` asks it to re-raise.
+
+Not ported: the orbax checkpoint backend (``exp.ckpt_backend`` other than
+pickle raises ``NotImplementedError`` naming ROADMAP.md).  The trainer
+runs on one device.
 """
 
 from __future__ import annotations
@@ -49,6 +59,7 @@ import os
 import pickle
 import re
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -57,7 +68,11 @@ from babe_tpu_torch.ops.conv_kernels import exact_backward
 from babe_tpu_torch.ops.resample import resample, resample_batch
 from babe_tpu_torch.testers.tester import read_checkpoint
 from babe_tpu_torch.utils.device import check_device
-from babe_tpu_torch.utils.logging import MetricsLogger, plot_loss_by_sigma
+from babe_tpu_torch.utils.logging import (
+    MetricsLogger,
+    plot_loss_by_sigma,
+    plot_spectrogram,
+)
 from babe_tpu_torch.utils.profiling import ScheduledProfiler
 from babe_tpu_torch.utils.weights import (
     adam_state_from_flax,
@@ -76,21 +91,31 @@ def _not_ported(what: str):
 class Trainer:
     """The training loop around one model on one device."""
 
-    def __init__(self, args, dset, model, edm, device="cuda"):
-        teacher = args.get_path("diff_params.PD.teacher_checkpoint", None)
-        if teacher not in (None, "None", ""):
-            raise _not_ported("progressive distillation (the PD teacher)")
+    def __init__(self, args, dset, model, edm, device="cuda", tester=None,
+                 teacher=None):
+        """``tester``: a ``Tester`` on its own network, for the demos of
+        ``heavy_logging``.  ``teacher``: a frozen model (``apply(x,
+        cnoise)``) for progressive distillation; it requires EDMPD diff
+        params."""
         if str(args.exp.get("ckpt_backend", "pickle")).lower() != "pickle":
             raise _not_ported("the orbax checkpoint backend")
+        if teacher is not None and not hasattr(edm, "loss_fn_PD"):
+            raise ValueError("a PD teacher requires EDMPD diff params "
+                             "(diff_params=edm_PD)")
         self.device = check_device(device)
         self.args, self.dset, self.model, self.edm = args, dset, model, edm
+        self.tester = tester
         exp = args.exp
         seed = int(exp.get("seed", 42))
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
         model.init(seed=seed, device=self.device)
         self.net = model.net
+        self.teacher = teacher
+        self.pd_stage = int(args.get_path("diff_params.PD.stage", 0) or 0)
         if os.environ.get("BABE_PRECISION", "bf16") == "int8":
             self.net.set_precision("int8")
+            if teacher is not None:
+                teacher.net.set_precision("int8")
         self.params = dict(self.net.named_parameters())
         self.ema = {k: p.detach().clone() for k, p in self.params.items()}
         self.mu = {k: torch.zeros_like(p) for k, p in self.params.items()}
@@ -209,7 +234,17 @@ class Trainer:
             audio = resample(audio, rf, 1)
         return audio[:, :int(exp.audio_len)]
 
-    def _grads(self, x, sigma=None, noise=None):
+    def _loss(self, x, sigma, noise, j):
+        """The per-sample squared error and sigmas of one round: EDM's
+        loss, or with a teacher EDMPD's distillation loss."""
+        if self.teacher is None:
+            return self.edm.loss_fn(self.gen, self.model.apply, x,
+                                    self.use_dc, sigma=sigma, noise=noise)
+        return self.edm.loss_fn_PD(self.gen, self.model.apply,
+                                   self.teacher.apply, x, self.pd_stage,
+                                   j=j, noise=noise)
+
+    def _grads(self, x, sigma=None, noise=None, j=None):
         """(loss, grads, error2, sigma): the mean of the rounds' losses and
         gradients (a batch of exp.batch items per round)."""
         rounds = self.num_accum
@@ -217,14 +252,15 @@ class Trainer:
         for p in self.params.values():
             p.grad = None
         losses, e2s, sigs = [], [], []
+
+        def part(v, r):
+            return None if v is None else v.reshape(rounds, -1,
+                                                    v.shape[-1])[r]
+
         for r in range(rounds):
-            s_r = None if sigma is None else sigma.reshape(rounds, -1, 1)[r]
-            n_r = None if noise is None else noise.reshape(
-                rounds, -1, noise.shape[-1])[r]
             with exact_backward():
-                err2, sig = self.edm.loss_fn(self.gen, self.model.apply,
-                                             xs[r], self.use_dc, sigma=s_r,
-                                             noise=n_r)
+                err2, sig = self._loss(xs[r], part(sigma, r),
+                                       part(noise, r), part(j, r))
                 loss = err2.mean()
                 loss.backward()
             losses.append(loss.detach())
@@ -268,8 +304,8 @@ class Trainer:
             e.copy_(e * s + p * (1.0 - s))
         self.it += 1
 
-    def _step(self, x, sigma=None, noise=None) -> dict:
-        loss, grads, error2, sig = self._grads(x, sigma, noise)
+    def _step(self, x, sigma=None, noise=None, j=None) -> dict:
+        loss, grads, error2, sig = self._grads(x, sigma, noise, j)
         gnorm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads.values()))
         finite = bool(torch.isfinite(loss) & torch.isfinite(gnorm))
         if finite:
@@ -286,13 +322,14 @@ class Trainer:
                 "sigma_bin_sqsums": binned(per_item ** 2),
                 "sigma_bin_counts": binned(torch.ones_like(per_item))}
 
-    def train_step(self, batch=None, sigma=None, noise=None) -> dict:
+    def train_step(self, batch=None, sigma=None, noise=None, j=None) -> dict:
         """One step on ``batch`` (the next one from the stream by default).
         ``sigma`` [N,1] and ``noise`` [N,T] (the prior draw, scaled by
-        sigma) replace the generator's draws when given."""
+        sigma) replace the generator's draws when given; with a teacher,
+        ``j`` [N,1] (the step pair) and ``noise`` replace EDMPD's."""
         x = self.get_batch() if batch is None else torch.as_tensor(
             batch, dtype=torch.float32, device=self.device)
-        return self._step(x, sigma, noise)
+        return self._step(x, sigma, noise, j)
 
     # ------------------------------------------------------------- logging
 
@@ -365,6 +402,36 @@ class Trainer:
                 h.remove()
         self.metrics_log.log(rec, step=it)
 
+    def heavy_logging(self, it: int):
+        """The tester's demos from the current EMA weights: an unconditional
+        sample with its spectrogram PNG (``train_logs/uncond_spec_it<it>
+        .png``), then inpainting and informed BWE where ``tester.modes``
+        lists them."""
+        if self.tester is None:
+            return
+        self.tester.set_variables(to_tree(self.ema), to_flax(self.net)[1],
+                                  it=it)
+        try:
+            preds = self.tester.sample_unconditional()
+            if preds is not None:
+                plot_spectrogram(
+                    preds, self.args.get_path("logging.stft", {}),
+                    os.path.join(str(self.args.model_dir), "train_logs",
+                                 f"uncond_spec_it{it}.png"))
+            modes = list(self.args.get_path("tester.modes", []))
+            if "inpainting" in modes:
+                self.tester.test_inpainting()
+            if "bwe" in modes:
+                self.tester.test_bwe()
+        except Exception:
+            # a failed demo must not end a long run, but it is printed in
+            # full; strict mode (tests, debugging) re-raises
+            print("heavy logging demo FAILED:")
+            traceback.print_exc()
+            if bool(self.args.get_path("logging.strict_demos", False)) or (
+                    os.environ.get("BABE_STRICT_DEMOS", "") not in ("", "0")):
+                raise
+
     # ------------------------------------------------------------ main loop
 
     def training_loop(self, max_its: int | None = None):
@@ -376,12 +443,6 @@ class Trainer:
         feat_interval = (int(log_cfg.get("log_feature_stats_interval", 0))
                          if log_cfg.get("log_feature_stats", False) else 0)
         max_nonfinite = int(log_cfg.get("max_consecutive_nonfinite", 20))
-        if (bool(self.args.get_path("tester.do_test", False))
-                and heavy_interval > 0
-                and (max_its is None or max_its >= heavy_interval)):
-            raise _not_ported("heavy logging (the tester demos at "
-                              "logging.heavy_log_interval; run with "
-                              "tester.do_test=false)")
         it0 = self.it
         t_start = time.time()
         streak = 0
@@ -416,5 +477,7 @@ class Trainer:
             if (it > 0 and it % save_interval == 0
                     and log_cfg.get("save_model", True)):
                 self.save_checkpoint()
+            if heavy_interval and it > 0 and it % heavy_interval == 0:
+                self.heavy_logging(it)
         self.profiler.close()
         return self

@@ -8,7 +8,9 @@
 Phases (any failure exits non-zero; no phase catches and carries on):
 
   1. identify   the card (nvidia-smi name and power limit), torch and CUDA
-                versions, and the kernel build (one nvcc per source, all
+                versions, whether this Python has tensorstore (what a
+                reader of orbax directories would build on), and the
+                kernel build (one nvcc per source, all
                 started together) with its time and ptxas resource lines.
   2. kernels    every hand kernel against its plain PyTorch version on
                 the card, in bf16 and fp32, at every shape the flagship
@@ -151,6 +153,28 @@ Phases (any failure exits non-zero; no phase catches and carries on):
                 (remat recompute included), params and EMA that moved,
                 then the written .ckpt loaded with BABE.load on the card
                 answering one blind request at tester.T = LOAD_CHECK_T.
+     families   the diffusion families and options beyond plain EDM at
+                the flagship: first each on a 16384-sample segment at
+                flagship widths, card against CPU (fp32 to 1e-3, bf16
+                within 1.5x of the CPU's own bf16 error against its fp32):
+                the A-weighted loss and its gradients (remat "full" and
+                "save_convs"), the PD loss with a teacher and its
+                gradients, the eps denoiser, the attention network's
+                output (attention_layers [0,0,0,0,1,1,1,1]) and one guided
+                evaluation with sigma_den_estimate = 0.01; then at 184184
+                samples through the train entry point (batch 4, bf16,
+                remat): the A-weighted EDM and EDMEps 2 steps each, PD 2
+                steps from a teacher .ckpt that the trainer's
+                save_checkpoint wrote from a seeded init (each step's
+                launches held to the network's, the teacher's two forward
+                evaluations included), PD_sample at stage 0, EDMEps'
+                unconditional Heun and DDIM runs at T = 8, the attention
+                network's step and one blind request at T = 8, one step
+                without remat, with "full" and with "save_convs" (seconds
+                and peak memory each), and one blind request with
+                sigma_den_estimate = 0.01 at T = 8; each run's seconds and
+                launches logged (runs alone as --phases
+                identify,families).
   8. quality    the same-seed 35-step unconditional trajectory of the
                 flagship model (110250 samples, batch 4, gates opened with
                 N(0, 0.02^2)) in bf16 and in int8: the waveform's relative
@@ -158,7 +182,7 @@ Phases (any failure exits non-zero; no phase catches and carries on):
   9. cli        ``python -m babe_tpu_torch.test``'s main, in-process, at
                 the flagship in bf16 on a seeded .ckpt and one seeded
                 test wav: blind_bwe and bwe (firwin, order 500, 1 kHz) at
-                tester.T = 35, then inpainting, declipping, comp_sens,
+                tester.T = 15, then inpainting, declipping, comp_sens,
                 phase_retrieval and unconditional at tester.T = 8; per mode
                 its seconds per item (and those of its trajectory dumps)
                 and its launches of K1, K2, K2's backward and the fit; the
@@ -518,6 +542,13 @@ def phase_identify(kernels):
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
+    # the orbax slice's question: a reader of orbax directories would build
+    # on tensorstore (checked without importing orbax)
+    import importlib.util
+
+    have = importlib.util.find_spec("tensorstore") is not None
+    log(f"tensorstore: {'present' if have else 'absent'} in this Python "
+        f"({sys.version.split()[0]})")
     t0 = time.perf_counter()
     kernels.build()
     log(f"kernel build: {time.perf_counter() - t0:.1f} s wall "
@@ -3370,7 +3401,7 @@ def _int_mm_route_check() -> None:
                                f"version")
 
 
-def phase_int8modes(results: dict, T: int = 35):
+def phase_int8modes(results: dict, T: int = 15):
     """The JAX package's int8 configurations on the card
     (``INT8_MODES``): the JAX API's int8 (``BABE_INT8_FUSED=0
     BABE_INT8_BWD=1``: one int8 conv, C8, per stage with the guidance
@@ -3379,7 +3410,7 @@ def phase_int8modes(results: dict, T: int = 35):
     the check at flagship widths on a short segment (``_int8_mode_check``),
     then one guided blind request at the flagship (seed-0 ``.ckpt``,
     ``BABE.load(precision="int8")`` under the knobs, 184184 samples,
-    tester.T = 35) with the counters zeroed just before and read just
+    tester.T = 15) with the counters zeroed just before and read just
     after; the amax, all-ops request also records its int8 1x1 shapes,
     where ``act_rescale`` is then held to its plain version; the int8 1x1
     product at shapes ``torch._int_mm`` does not take goes through P1
@@ -3647,8 +3678,10 @@ def _spied(spies: list, runs: list):
     return undo
 
 
-def phase_long(results: dict, T: int = 35):
-    """One blind request with the denoiser on a whole recording: 20 s of
+def phase_long(results: dict, T: int = 15):
+    """One blind request with the denoiser on a whole recording (each
+    sampler run at ``T`` steps: 15 since the default run gained the
+    families phase; the requests phase times the full 35): 20 s of
     seeded 44.1 kHz audio (low-passed tones plus noise) through
     ``BABE.load(ckpt, denoiser_checkpoint=...).enhance(x, 44100,
     denoise=True)`` on the flagship in bf16 and the full-width denoiser
@@ -3796,7 +3829,7 @@ def _seeded_wavs(folder: str, n: int, seconds: float, fs: int, seed: int):
 
 
 # the trained checkpoint's load check answers one blind request at this
-# depth (the request phases time the full 35 steps)
+# depth (the requests phase times the full 35 steps)
 LOAD_CHECK_T = 8
 
 
@@ -3956,6 +3989,532 @@ def phase_train(results: dict, steps: int = 5, untimed: int = 2):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# the families phase: its checks run at flagship widths on this short
+# segment (card against CPU, as the check phase's), its runs at the full
+# 184184 samples; guided and unconditional runs at FAMILY_T steps
+FAMILY_CHECK_LEN = 16384
+FAMILY_T = 8
+# attention on the three deepest levels and the bottleneck, where the frame
+# counts are smallest (an override of the shipped config, not a published
+# one)
+ATTENTION_OV = "network.attention_layers=[0,0,0,0,1,1,1,1]"
+# the kernels every training step of a family must launch, and those of a
+# guided request
+FAMILY_TRAIN = ("conv5x3", "fused_stage", "fused_stage_bwd", "conv_dw",
+                "fused_stage_dw")
+FAMILY_GUIDED = ("conv5x3", "fused_stage", "fused_stage_bwd", "filter_fit")
+
+
+def _l2(a, b) -> float:
+    return float((a.float() - b.float()).norm()
+                 / (b.float().norm() + 1e-30))
+
+
+def _family_compare(label: str, run, tol: float = 1e-3, extra=None) -> dict:
+    """``run(dev, dtype)`` -> {name: tensor on the CPU} on the check model
+    (for a loss, its per-sample squared errors: one scalar's bf16 rounding
+    is a single draw, not a statistic the 1.5x bar can read).
+    Each quantity on the card in fp32 against the CPU's fp32 within
+    ``tol`` (summation order, as the check phase's flagship-width bar),
+    and on the card in bf16 against the CPU's fp32 no worse than 1.5x the
+    CPU's own bf16 result (bf16 chaos: two bf16 runs drift apart as far as
+    bf16 drifts from fp32).  ``extra``: {label: (dev, dtype, run kwargs)}
+    more card runs held the same way against the same references."""
+    import torch
+
+    f32, b16 = torch.float32, torch.bfloat16
+    out = {(dev, dt): run(dev, dt) for dt in (f32, b16)
+           for dev in ("cuda", "cpu")}
+    ref = out["cpu", f32]
+    cases = [("", out["cuda", f32], out["cuda", b16])]
+    for name, kw in (extra or {}).items():
+        cases.append((f" {name}", run("cuda", f32, **kw),
+                      run("cuda", b16, **kw)))
+    good = True
+    for tag, c32, c16 in cases:
+        for k in ref:
+            e32, e_card = _l2(c32[k], ref[k]), _l2(c16[k], ref[k])
+            e_cpu = _l2(out["cpu", b16][k], ref[k])
+            ok = (bool(torch.isfinite(c32[k]).all())
+                  and bool(torch.isfinite(c16[k]).all())
+                  and e32 <= tol and e_card <= 1.5 * e_cpu)
+            log(f"families check {label}{tag}: {k} card fp32 vs CPU fp32 "
+                f"l2_rel={e32:.3e} (tol {tol:g}); bf16 vs CPU fp32: card "
+                f"{e_card:.3e}, CPU {e_cpu:.3e} (card within 1.5x) "
+                f"{'ok' if ok else 'FAIL'}")
+            good &= ok
+    if not good:
+        raise RuntimeError(f"families check failed: {label}")
+    return out
+
+
+def _grads_of(net) -> "torch.Tensor":
+    import torch
+
+    return torch.cat([p.grad.detach().float().flatten().cpu()
+                      for p in net.parameters()])
+
+
+def _family_checks():
+    """Each family's result at flagship widths on a FAMILY_CHECK_LEN
+    segment, card against CPU (``_family_compare``), on O(1) weights:
+    the A-weighted loss and its gradients (remat "full", and on the card
+    "save_convs" too), the PD loss with a teacher and its gradients, the
+    eps denoiser, the attention network's output, and one guided
+    evaluation with sigma_den_estimate (each CPU run forced onto the
+    card's fitted filter of its dtype: the fit's end point moves with
+    rounding, ROADMAP.md section 3; the card's own fit is logged against
+    the CPU's)."""
+    import torch
+
+    from babe_tpu_torch.config import default_config
+    from babe_tpu_torch.diffusion.edm import EDM, EDMParams
+    from babe_tpu_torch.models.cqtdiff import CQTDiffPlus
+    from babe_tpu_torch.ops.stft import apply_stft
+    from babe_tpu_torch.sampling.blind import BlindConfig, BlindSampler
+    from babe_tpu_torch.sampling.heun import SamplerConfig
+    from babe_tpu_torch.setup import setup_diff_parameters
+
+    Lc = FAMILY_CHECK_LEN
+    rng = np.random.default_rng(40)
+    x = (0.1 * rng.standard_normal((1, Lc))).astype(np.float32)
+    sigma = np.full((1, 1), 0.2, np.float32)
+    noise = (sigma * rng.standard_normal((1, Lc))).astype(np.float32)
+
+    def model(ov, seed, remat=True):
+        args = default_config(ov + [f"exp.audio_len={Lc}",
+                                    f"exp.remat={str(remat).lower()}"])
+        m = CQTDiffPlus.from_config(args).init(seed=seed, device="cpu")
+        _random_flagship_like(m.net, seed + 1)
+        remat_on[m] = remat
+        return args, m
+
+    def put(m, dev, dt):
+        # remat changes no value, only what is kept: the CPU references
+        # run without it (a third less work), the card with it
+        m.to(dev)
+        m.net.compute_dtype = dt
+        m.net.remat = dev != "cpu" and remat_on[m]
+        return torch.tensor(x, device=dev)
+
+    remat_on = {}
+
+    # the A-weighted loss, remat "full" and "save_convs"
+    t0 = time.perf_counter()
+    args, m = model(["diff_params=edm_aweighting"], 41)
+    edm = setup_diff_parameters(args, cqt_hpf=m.apply_hpf_DC)
+
+    def aw(dev, dt, policy="full"):
+        xt = put(m, dev, dt)
+        m.net.remat_policy = policy
+        m.net.requires_grad_(True)
+        m.net.zero_grad(set_to_none=True)
+        e2, _ = edm.loss_fn(None, m.apply, xt, True,
+                            sigma=torch.tensor(sigma, device=dev),
+                            noise=torch.tensor(noise, device=dev))
+        e2.mean().backward()
+        return {"loss terms": e2.detach().cpu(), "grads": _grads_of(m.net)}
+
+    _family_compare("A-weighted loss", aw,
+                    extra={"save_convs": {"policy": "save_convs"}})
+    log(f"families check A-weighted (+ save_convs): "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # the PD loss with a teacher (a second network), stage 0
+    t0 = time.perf_counter()
+    args, m = model(["diff_params=edm_PD"], 43)
+    _, teacher = model(["diff_params=edm_PD"], 45)
+    teacher.net.requires_grad_(False)
+    pd = setup_diff_parameters(args, cqt_hpf=m.apply_hpf_DC)
+    sched = pd.boundaries.flip(0)
+    j = torch.tensor([[3]])
+    pd_noise = (float(sched[7]) * rng.standard_normal((1, Lc))).astype(
+        np.float32)
+
+    def pdl(dev, dt):
+        xt = put(m, dev, dt)
+        teacher.to(dev)
+        teacher.net.compute_dtype = dt
+        m.net.requires_grad_(True)
+        m.net.zero_grad(set_to_none=True)
+        e2, _ = pd.loss_fn_PD(None, m.apply, teacher.apply, xt, 0,
+                              j=j.to(dev),
+                              noise=torch.tensor(pd_noise, device=dev))
+        e2.mean().backward()
+        return {"loss terms": e2.detach().cpu(), "grads": _grads_of(m.net)}
+
+    _family_compare("PD loss (teacher, stage 0)", pdl)
+    del teacher
+    log(f"families check PD: {time.perf_counter() - t0:.1f} s")
+
+    # the eps denoiser
+    t0 = time.perf_counter()
+    args, m = model(["diff_params=edm_eps"], 47, remat=False)
+    m.net.requires_grad_(False)
+    eps = setup_diff_parameters(args)
+
+    def epsd(dev, dt):
+        xt = put(m, dev, dt)
+        with torch.no_grad():
+            return {"eps denoiser": eps.denoiser(xt, m.apply, 0.2).cpu()}
+
+    _family_compare("EDMEps", epsd)
+    log(f"families check EDMEps: {time.perf_counter() - t0:.1f} s")
+
+    # the attention network's output
+    t0 = time.perf_counter()
+    args, m = model([ATTENTION_OV], 49, remat=False)
+    m.net.requires_grad_(False)
+    cn = torch.tensor([[-0.4]])
+
+    def att(dev, dt):
+        xt = put(m, dev, dt)
+        with torch.no_grad():
+            return {"output": m.apply(xt, cn.to(dev)).cpu()}
+
+    _family_compare("attention network", att)
+    log(f"families check attention: {time.perf_counter() - t0:.1f} s")
+
+    # one guided evaluation with sigma_den_estimate, the CPU's fit forced
+    # onto the card's (per dtype)
+    t0 = time.perf_counter()
+    args, m = model(["tester.blind_bwe.sigma_den_estimate=0.01"], 51,
+                    remat=False)
+    m.net.requires_grad_(False)
+    tedm = EDM(EDMParams.from_config(args.tester.diff_params))
+    scfg, bcfg = SamplerConfig.from_args(args), BlindConfig.from_args(args)
+    y = _lowpassed_audio(Lc, 22050, seed=52)[None]
+    dn = rng.standard_normal((1, Lc)).astype(np.float32)
+    fitted, fits = {}, {}
+
+    def den(dev, dt):
+        put(m, dev, dt)
+        s = BlindSampler(m.fused_denoiser(tedm), tedm, scfg, bcfg,
+                         device=dev)
+        forcing = dt in fitted  # the CPU's run comes after the card's
+        if forcing:
+            own = s.fit_params
+
+            def forced(X, Y, p0):
+                fits[dt] = own(X, Y, p0)
+                return fitted[dt].to(p0.device)
+
+            s.fit_params = forced
+        yt = torch.tensor(y, device=dev)
+        sc, p, xd = s._stage(torch.tensor(x, device=dev) + yt, 0.2,
+                             bcfg.initial_params(dev), yt,
+                             apply_stft(yt, bcfg.nfft), None,
+                             den_noise=torch.tensor(dn, device=dev))
+        if not forcing:
+            fitted[dt] = p.cpu()
+        return {"score": sc.cpu(), "denoised": xd.cpu()}
+
+    _family_compare("sigma_den_estimate=0.01 guided evaluation", den)
+    for dt, p in fitted.items():
+        log(f"families check sigma_den: {str(dt).split('.')[-1]} fit on "
+            f"the card fc={np.round(p[0].numpy(), 1).tolist()} A="
+            f"{np.round(p[1].numpy(), 2).tolist()}, the CPU's own fc="
+            f"{np.round(fits[dt][0].numpy(), 1).tolist()} A="
+            f"{np.round(fits[dt][1].numpy(), 2).tolist()}")
+    log(f"families check sigma_den: {time.perf_counter() - t0:.1f} s")
+
+
+def _family_train(label: str, argv: list, want: dict | None):
+    """``babe_tpu_torch.train``'s main with ``argv``: each step timed
+    between synchronisations with its launches; every FAMILY_TRAIN kernel
+    launched in every step (exactly ``want`` a step when given), finite
+    losses.  Returns the trainer and the peak memory."""
+    import torch
+
+    from babe_tpu_torch import kernels
+    from babe_tpu_torch import train as ttrain
+    from babe_tpu_torch.training.trainer import Trainer
+
+    rec = []
+    orig = Trainer._step
+
+    def spy(self, x, sigma=None, noise=None, j=None):
+        torch.cuda.synchronize()
+        before = dict(kernels.LAUNCHES)
+        t1 = time.perf_counter()
+        m = orig(self, x, sigma, noise, j)
+        torch.cuda.synchronize()
+        rec.append({"s": time.perf_counter() - t1, "loss": float(m["loss"]),
+                    "nonfinite": bool(m["nonfinite"]),
+                    "launches": {k: kernels.LAUNCHES[k] - before[k]
+                                 for k in TRAIN_PATH}})
+        return m
+
+    Trainer._step = spy
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        tr = ttrain.main(argv)
+    finally:
+        Trainer._step = orig
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    exp = tr.args.exp
+    for i, r in enumerate(rec):
+        log(f"families {label} step {i + 1}: {r['s']:.3f} s, loss "
+            f"{r['loss']:.5f}, launches {r['launches']}")
+    log(f"families {label}: {len(rec)} steps (batch {int(exp.batch)} x "
+        f"{int(exp.audio_len)}, remat {tr.net.remat}, "
+        f"{str(tr.net.compute_dtype).split('.')[-1]}) in {wall:.1f} s of "
+        f"main, peak memory {peak / 2**30:.2f} GiB")
+    if (int(exp.batch), int(exp.audio_len), tr.net.compute_dtype) != (
+            4, 184184, torch.bfloat16):
+        raise RuntimeError(f"families {label}: not the flagship training "
+                           f"config")
+    for r in rec:
+        if r["nonfinite"] or not math.isfinite(r["loss"]):
+            raise RuntimeError(f"families {label}: a non-finite step")
+        if any(r["launches"][k] <= 0 for k in FAMILY_TRAIN):
+            raise RuntimeError(f"families {label}: a path kernel did not "
+                               f"launch in a step: {r['launches']}")
+        if want is not None and any(r["launches"][k] != want[k]
+                                    for k in want):
+            raise RuntimeError(f"families {label}: launches "
+                               f"{r['launches']}, expected {want} a step")
+    return tr, rec, peak
+
+
+def _counted(label: str, fn, need=()):
+    """``fn()`` timed between synchronisations with its launches counted
+    (the counters zeroed just before and read just after); every kernel of
+    ``need`` must have launched."""
+    import torch
+
+    from babe_tpu_torch import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t1 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t1
+    counts = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    log(f"families {label}: {sec:.2f} s, launches {counts}")
+    missing = [k for k in need if not counts.get(k)]
+    if missing:
+        raise RuntimeError(f"families {label}: {missing} never launched")
+    return out, sec, counts
+
+
+def phase_families(results: dict):
+    """The diffusion families and options beyond plain EDM at the flagship
+    (conf/network/cqtdiff+.yaml, 7 octaves x 64 bins, 184184 samples):
+    first each held card against CPU at flagship widths on a short segment
+    (``_family_checks``), then at full size, training through
+    ``babe_tpu_torch.train``'s main (batch 4, bf16, remat) and serving at
+    batch 1: the A-weighted EDM (2 steps); PD with a teacher .ckpt written
+    by the port's own save_checkpoint from a seeded init (2 steps, the
+    teacher's two forward evaluations a step counted), then PD_sample at
+    stage 0; EDMEps (2 steps, an unconditional Heun run and a DDIM run at
+    FAMILY_T); the attention network (1 step, one blind guided request at
+    FAMILY_T); one training step without remat, with "full" and with
+    "save_convs" (seconds and peak memory each); one blind guided request
+    with sigma_den_estimate = 0.01 at FAMILY_T.  Seconds per step or per
+    request and each kernel's launches are logged; a failed check or a
+    non-finite result fails the phase."""
+    import shutil
+
+    import torch
+
+    from babe_tpu_torch.api import BABE
+    from babe_tpu_torch.config import default_config
+    from babe_tpu_torch.diffusion.edm import EDM
+    from babe_tpu_torch.models.cqtdiff import CQTDiffPlus
+    from babe_tpu_torch.testers.tester import Tester
+    from babe_tpu_torch.training.trainer import Trainer
+    from babe_tpu_torch.utils.weights import to_flax, to_tree
+
+    t0 = time.perf_counter()
+    _family_checks()
+    log(f"families checks: {time.perf_counter() - t0:.1f} s")
+    out = results.setdefault("families", {})
+    tmp = tempfile.mkdtemp(prefix="babe_families_")
+    try:
+        wavs = os.path.join(tmp, "wavs")
+        os.makedirs(wavs)
+        _seeded_wavs(wavs, 4, 10.0, 44100, seed=60)
+
+        def argv(name, extra):
+            return ["dset=musicnet", f"dset.path={wavs}", "exp=maestro22k_8s",
+                    "network=cqtdiff+", f"model_dir={os.path.join(tmp, name)}",
+                    "exp.resume=false", "logging.log_interval=1",
+                    "logging.save_model=false", "tester.do_test=false",
+                    f"tester.T={FAMILY_T}"] + extra
+
+        def gen(seed):
+            return torch.Generator(device="cuda").manual_seed(seed)
+
+        def finite(label, z, shape):
+            if not (tuple(z.shape) == shape and bool(torch.isfinite(z).all())):
+                raise RuntimeError(f"families {label}: not finite or not "
+                                   f"{shape}: {tuple(z.shape)}")
+
+        # the A-weighted EDM
+        tr, rec, peak = _family_train(
+            "A-weighted", argv("aw", ["diff_params=edm_aweighting",
+                                      "exp.total_its=2"]), None)
+        want = train_launches_per_step(tr.net)
+        if any(r["launches"] != want for r in rec):
+            raise RuntimeError(f"families A-weighted: launches differ from "
+                               f"the network's {want}")
+        if not tr.edm.use_aweighting:
+            raise RuntimeError("families A-weighted: the loss is not "
+                               "A-weighted")
+        out["aweighted_s_per_step"] = [r["s"] for r in rec]
+        L = int(tr.args.exp.audio_len)
+        del tr
+        torch.cuda.empty_cache()
+
+        # PD: a teacher from a seeded init, written by save_checkpoint
+        targs = default_config(argv("teacher", ["exp.total_its=0"]))
+        tm = CQTDiffPlus.from_config(targs)
+        teacher_tr = Trainer(targs, None, tm, EDM.from_config(targs),
+                             device="cuda")
+        ckpt = teacher_tr.save_checkpoint()
+        del teacher_tr, tm
+        torch.cuda.empty_cache()
+        log(f"families PD: teacher {os.path.basename(ckpt)} "
+            f"({os.path.getsize(ckpt) / 2**20:.0f} MiB) written by "
+            f"Trainer.save_checkpoint from seed 42")
+        tr, rec, peak = _family_train(
+            "PD", argv("pd", ["diff_params=edm_PD", "exp.total_its=2",
+                              f"diff_params.PD.teacher_checkpoint={ckpt}"]),
+            None)
+        base = train_launches_per_step(tr.net)
+        stages = base["fused_stage_bwd"]
+        pyr = base["conv5x3"]
+        want = dict(base, conv5x3=3 * pyr, fused_stage=base["fused_stage"]
+                    + 2 * stages, stage_fwd_operand=base["stage_fwd_operand"]
+                    + 2 * stages)
+        if tr.teacher is None or any(r["launches"] != want for r in rec):
+            raise RuntimeError(f"families PD: launches differ from the "
+                               f"network's with the teacher's two forward "
+                               f"evaluations {want}")
+        out["pd_s_per_step"] = [r["s"] for r in rec]
+        tr.net.requires_grad_(False)
+        z, sec, _ = _counted(
+            "PD_sample (stage 0, 8 ODE steps, batch 1)",
+            lambda: tr.edm.PD_sample(gen(61), 1, L, tr.model.apply, 0),
+            need=("conv5x3", "fused_stage"))
+        finite("PD_sample", z, (1, L))
+        out["pd_sample_s"] = sec
+        del tr, z
+        torch.cuda.empty_cache()
+
+        # EDMEps: training, then Heun (the tester with its own family) and
+        # DDIM
+        ea = argv("eps", ["diff_params=edm_eps", "exp.total_its=2",
+                          f"diff_params.T={FAMILY_T}",
+                          "tester.diff_params.same_as_training=true"])
+        tr, rec, peak = _family_train("EDMEps", ea, None)
+        if any(r["launches"] != train_launches_per_step(tr.net) for r in rec):
+            raise RuntimeError("families EDMEps: launches differ from the "
+                               "network's")
+        out["eps_s_per_step"] = [r["s"] for r in rec]
+        tt = Tester(tr.args, tr.model, tr.edm, device="cuda")
+        tt.set_variables(to_tree(tr.ema), to_flax(tr.net)[1])
+        if tt.edm is not tr.edm:
+            raise RuntimeError("families EDMEps: the tester serves another "
+                               "family")
+        z, sec, _ = _counted(
+            f"EDMEps unconditional Heun (T={FAMILY_T}, batch 1)",
+            lambda: tt.sampler().predict_unconditional(gen(62), (1, L)),
+            need=("conv5x3", "fused_stage"))
+        finite("EDMEps Heun", z, (1, L))
+        out["eps_heun_s"] = sec
+        z, sec, _ = _counted(
+            f"EDMEps DDIM (T={tr.edm.T}, batch 1)",
+            lambda: tr.edm.reverse_process_ddim(gen(63), (1, L),
+                                                tr.model.apply),
+            need=("conv5x3", "fused_stage"))
+        finite("EDMEps DDIM", z, (1, L))
+        out["eps_ddim_s"] = sec
+        del tr, tt, z
+        torch.cuda.empty_cache()
+
+        # the attention network: one step, one blind guided request
+        tr, rec, peak = _family_train(
+            "attention", argv("att", [ATTENTION_OV, "exp.total_its=1"]),
+            None)
+        out["attention_s_per_step"] = [r["s"] for r in rec]
+        out["attention_peak_gib"] = peak / 2**30
+        tr.net.remat = False  # serving runs without it, as BABE.load builds
+        tt = Tester(tr.args, tr.model, tr.edm, device="cuda")
+        tt.set_variables(to_tree(tr.ema), to_flax(tr.net)[1])
+        y = torch.tensor(_lowpassed_audio(L, 22050, seed=64)[None],
+                         device="cuda")
+        (z, p), sec, _ = _counted(
+            f"attention blind request (T={FAMILY_T}, batch 1)",
+            lambda: tt.sampler().predict_blind_bwe(gen(65), y),
+            need=FAMILY_GUIDED)
+        finite("attention request", z, (1, L))
+        out["attention_request_s"] = sec
+        del tr, tt, z
+        torch.cuda.empty_cache()
+
+        # save_convs beside "full" and no remat: one step each, one warm-up
+        sa = default_config(argv("remat", ["exp.total_its=1"]))
+        sm = CQTDiffPlus.from_config(sa)
+        st = Trainer(sa, None, sm, EDM.from_config(sa, cqt_hpf=sm.apply_hpf_DC),
+                     device="cuda")
+        xb = np.stack([_lowpassed_audio(L, 22050, seed=66 + i)
+                       for i in range(4)])
+        st.train_step(xb)
+        steps = {}
+        for label, remat, policy in (("no remat", False, "full"),
+                                     ("full", True, "full"),
+                                     ("save_convs", True, "save_convs")):
+            st.net.remat, st.net.remat_policy = remat, policy
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            m, sec, counts = _counted(f"train step, {label}",
+                                      lambda: st.train_step(xb),
+                                      need=FAMILY_TRAIN)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            if m["nonfinite"]:
+                raise RuntimeError(f"families {label}: a non-finite step")
+            steps[label] = {"s": sec, "peak_gib": peak,
+                            "fused_stage": counts.get("fused_stage", 0)}
+            log(f"families remat {label}: {sec:.3f} s, peak memory "
+                f"{peak:.2f} GiB")
+        nst = steps["no remat"]["fused_stage"]
+        if not (steps["full"]["fused_stage"] == steps["save_convs"][
+                "fused_stage"] == 2 * nst):
+            raise RuntimeError(f"families remat: K2 launches {steps}: the "
+                               f"remat steps must recompute every stage")
+        out["remat"] = steps
+        del st, sm
+        torch.cuda.empty_cache()
+
+        # a blind guided request with sigma_den_estimate = 0.01
+        ba = default_config(["tester=blind_bwe"])
+        path = _flagship_ckpt(ba, tmp)
+        m = BABE.load(path, overrides=[
+            f"tester.T={FAMILY_T}",
+            "tester.blind_bwe.sigma_den_estimate=0.01"])
+        if m._tester.blind_cfg.sigma_den_estimate != 0.01:
+            raise RuntimeError("families sigma_den: not configured")
+        x = _lowpassed_audio(L, 22050, seed=67)
+        (xo, info), sec, _ = _counted(
+            f"sigma_den_estimate=0.01 blind request (T={FAMILY_T})",
+            lambda: m.enhance(x, 22050, seed=0), need=FAMILY_GUIDED)
+        if not (np.isfinite(xo).all() and xo.shape == (1, L)
+                and np.isfinite(info["fc"]).all()):
+            raise RuntimeError("families sigma_den: a non-finite request")
+        log(f"families sigma_den: fc={np.round(info['fc'], 1).tolist()} "
+            f"A={np.round(info['A'], 2).tolist()}")
+        out["sigma_den_request_s"] = sec
+        del m
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def phase_quality(results: dict, sigma_gate: float = 0.02):
     """The same-seed 35-step unconditional trajectory in bf16 and in int8:
     flagship model (seed 0) at 110250 samples, batch 4, every gate kernel
@@ -4087,7 +4646,7 @@ def phase_iir(results: dict, t: float = 0.5):
 # files each mode writes per test item (the unconditional run's one wav)
 # test items per CLI run (a second item repeats each mode's timing)
 CLI_ITEMS = 1
-CLI_RUNS = ((35, ("blind_bwe", "bwe")),
+CLI_RUNS = ((15, ("blind_bwe", "bwe")),
             (8, ("inpainting", "declipping", "comp_sens", "phase_retrieval",
                  "unconditional")))
 CLI_FILES = {
@@ -4119,7 +4678,7 @@ def phase_cli(results: dict):
     flagship (exp=maestro22k_8s, network=cqtdiff+, bf16) on seeded weights
     written as a .ckpt and CLI_ITEMS seeded test wav (dset=musicnet, 9 s
     at 22.05 kHz, cropped to 184184 samples by the test set): blind_bwe and
-    bwe (firwin, order 500, fc 1000 Hz) at tester.T = 35, then
+    bwe (firwin, order 500, fc 1000 Hz) at tester.T = 15, then
     inpainting, declipping, comp_sens, phase_retrieval and unconditional
     (2 clips) at tester.T = 8.  The counters are zeroed just before each
     CLI run and read just after; each mode's seconds per item and its
@@ -4481,7 +5040,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--phases",
                    default="identify,kernels,probe,check,requests,"
-                           "int8modes,pt,long,train,quality,cli,capability",
+                           "int8modes,pt,long,train,families,quality,cli,"
+                           "capability",
                    help="comma list; 'profile' (not run by default) breaks "
                         "one guided evaluation down, 'q8' (nor this) checks "
                         "and times Q8 alone with its parts, 'iir' (nor "
@@ -4524,6 +5084,7 @@ def main(argv=None) -> int:
                      ("requests", phase_requests),
                      ("int8modes", phase_int8modes), ("pt", phase_pt),
                      ("long", phase_long), ("train", phase_train),
+                     ("families", phase_families),
                      ("quality", phase_quality), ("cli", phase_cli),
                      ("capability", phase_capability), ("iir", phase_iir),
                      ("gates", phase_gates),

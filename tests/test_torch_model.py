@@ -205,5 +205,14 @@ def test_freq_encoding_and_rff_embedding_match_jax(rng):
 
 
 def test_attention_raises_not_ported():
-    with pytest.raises(NotImplementedError):
+    """Attention is ported (tests/test_torch_attention.py): a block with a
+    full attention_dict builds the gated attention branch, and one that
+    lacks the relative-position keys that use_rel_pos needs raises
+    KeyError naming the key, as the JAX module does."""
+    with pytest.raises(KeyError, match="rel_pos_num_buckets"):
         tb.ResnetBlock(8, 8, attention_dict={"num_heads": 2})
+    blk = tb.ResnetBlock(8, 8, attention_dict={
+        "num_heads": 2, "rel_pos_num_buckets": 8,
+        "rel_pos_max_distance": 16}, Fdim=16)
+    assert isinstance(blk.attn_block, tb.TimeAttentionBlock)
+    assert {"affine2", "gate2", "norm2"} <= set(dict(blk.named_children()))
