@@ -14,10 +14,13 @@ The hot kernels of the sampling path are hand-written CUDA for sm_90a
   * ``ops.conv_kernels.fused_stage``      one ResnetBlock dilation stage
   * ``ops.conv_kernels.fused_stage_int8`` the same stage with an int8 conv
     (models loaded with ``precision="int8"``)
+  * ``ops.iir.lfilter``                   the IIR recursion of the cheby1
+    and biquad degradations
 
 Library entry point: ``babe_tpu_torch.api.BABE``; command lines:
 ``python -m babe_tpu_torch.train`` and ``python -m babe_tpu_torch.test``
-(the counterparts of the repository's ``train.py`` and ``test.py``).
+(the counterparts of the repository's ``train.py`` and ``test.py``), one
+process per card under ``torchrun`` (``parallel.mesh``).
 """
 
 __version__ = "0.1.0"

@@ -195,7 +195,9 @@ class BABE:
         t = self._tester_at(audio_len)
         if seed is not None:
             t.seed(seed)
-        out = t.sampler().predict_unconditional(t.next_key(), (n, audio_len))
+        # over several processes whose count divides n, each samples its
+        # rows and every process returns the batch
+        out = t.unconditional(t.next_key(), (n, audio_len))
         return out.float().cpu().numpy()
 
     def _prep(self, audio, fs) -> np.ndarray:

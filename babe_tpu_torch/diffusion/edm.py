@@ -171,14 +171,23 @@ class EDM:
         target = (1.0 / cout) * (x - cskip * (x + noise))
         return cin * (x + noise), target, self.cnoise(sigma)
 
+    def train_draws(self, gen, x, sigma=None, noise=None):
+        """The draws of one loss on x [B,T]: (sigma [B,1], noise [B,T], the
+        prior draw scaled by sigma), each from ``gen`` unless given, sigma
+        first."""
+        if sigma is None:
+            sigma = self.sample_ptrain_safe(gen, x.shape[0])[:, None]
+        sigma = sigma.to(x.device)
+        if noise is None:
+            noise = self.sample_prior(gen, x.shape, sigma).to(x.device)
+        return sigma, noise
+
     def loss_fn(self, gen, net, x, use_cqt_DC_correction: bool = False,
                 sigma=None, noise=None):
         """Per-sample squared error [B,T] and the sigmas [B,1] used.
         ``sigma`` and ``noise`` are drawn from ``gen`` (sigma first) unless
-        given."""
-        if sigma is None:
-            sigma = self.sample_ptrain_safe(gen, x.shape[0])[:, None]
-        sigma = sigma.to(x.device)
+        given (``train_draws``)."""
+        sigma, noise = self.train_draws(gen, x, sigma, noise)
         inp, target, cnoise = self.prepare_train_preconditioning(
             gen, x, sigma, noise)
         error = net(inp, cnoise) - target

@@ -36,15 +36,12 @@ class EDMPD(EDM):
         score = (x0_hat - x) / sigma_0**2
         return x - (sigma_1 - sigma_0) * sigma_0 * score
 
-    def loss_fn_PD(self, gen, net, net_teacher, x, stage: int, j=None,
-                   noise=None):
-        """Per-sample squared error [B,T] of the student against the
-        teacher's double step, and the sigmas [B,1] used.  ``j`` [B,1]
-        (the step pair, in [1, n // 2) over the stage's n boundaries when
-        n > 3) and ``noise`` [B,T] (the prior draw, already scaled by
-        sigma_0) are drawn from ``gen`` (j first) unless given.  The
-        teacher runs without autograd; the error is DC-corrected when the
-        CQT's hpf is set."""
+    def pd_draws(self, gen, x, stage: int, j=None, noise=None):
+        """(schedule, j, i, noise) of one PD loss on x [B,T]: the stage's
+        schedule from high to low sigma, the step pair j [B,1] (None when
+        the schedule has 3 boundaries or fewer), its boundary index i and
+        the prior draw scaled by sigma_0, j and noise each drawn from
+        ``gen`` unless given, j first."""
         schedule = self.boundaries[::2**stage] if stage > 0 else self.boundaries
         schedule = schedule.flip(0).to(x.device)
         B, n = x.shape[0], schedule.shape[0]
@@ -55,10 +52,22 @@ class EDMPD(EDM):
             i = j.to(x.device).long() * 2 + 1
         else:
             i = torch.full((B, 1), 2, device=x.device)
-        sigma_0, sigma_1, sigma_2 = schedule[i], schedule[i - 1], schedule[i - 2]
         if noise is None:
-            noise = self.sample_prior(gen, x.shape, sigma_0.to(gen.device))
-        noise = noise.to(x.device)
+            noise = self.sample_prior(gen, x.shape,
+                                      schedule[i].to(gen.device))
+        return schedule, j, i, noise.to(x.device)
+
+    def loss_fn_PD(self, gen, net, net_teacher, x, stage: int, j=None,
+                   noise=None):
+        """Per-sample squared error [B,T] of the student against the
+        teacher's double step, and the sigmas [B,1] used.  ``j`` [B,1]
+        (the step pair, in [1, n // 2) over the stage's n boundaries when
+        n > 3) and ``noise`` [B,T] (the prior draw, already scaled by
+        sigma_0) are drawn from ``gen`` (j first) unless given.  The
+        teacher runs without autograd; the error is DC-corrected when the
+        CQT's hpf is set."""
+        schedule, j, i, noise = self.pd_draws(gen, x, stage, j, noise)
+        sigma_0, sigma_1, sigma_2 = schedule[i], schedule[i - 1], schedule[i - 2]
         cskip_0, cout_0, cin_0 = (self.cskip(sigma_0), self.cout(sigma_0),
                                   self.cin(sigma_0))
         zn = x + noise

@@ -6,7 +6,7 @@ library name carries a hash of the sources, so an edited kernel rebuilds and
 a stale build is never picked up.  ``build()`` starts one ``nvcc`` per source,
 all at once.
 
-Seventeen kernels: ``conv5x3`` (K1, ``csrc/conv5x3.cu``), ``fused_stage``
+Eighteen kernels: ``conv5x3`` (K1, ``csrc/conv5x3.cu``), ``fused_stage``
 (K2), its operand pass ``stage_fwd_operand`` and ``fused_stage_bwd``
 (K2's backward), all in ``csrc/fused_stage.cu``, ``filter_fit`` (the
 blind sampler's filter fit, ``csrc/filter_fit.cu``), ``fused_stage_int8``
@@ -30,7 +30,9 @@ channels, or a ``__dp4a`` tile, by ``conv_int8_route`` and
 quantizers ``act_quant_dyn`` (the dynamic amax and the quantize in one
 cooperative launch) and ``act_quant`` (at a given amax), both cut by
 ``q8_plan``, and the int32 rescale ``act_rescale`` (cut by
-``rescale_plan``; ``csrc/quant_int8.cu``). Each call's route and cut is
+``rescale_plan``; ``csrc/quant_int8.cu``), and ``lfilter`` (the IIR
+recursion of the cheby1 and biquad degradations, one row a thread, forward
+or back to front: ``csrc/iir.cu``). Each call's route and cut is
 made here and passed to the kernel: the GEMM's tiles, chunks and splits by
 ``dw_plan``, K1's route (tiles, narrow in, narrow out) by
 ``conv5x3_route`` and ``conv5x3_plan``, K2's, K2's backward's and K3's (a
@@ -118,6 +120,8 @@ KERNELS = {
     "q8_slots": ("quant_int8", "babe_act_quant_dyn_slots", [_I]),
     "q8_part": ("quant_int8", "babe_act_quant_dyn_part", [_P] * 4
                 + [_I, _LL, _I, _I, _LL, _I, _I, _P]),
+    # the IIR recursion (transposed direct form II), a row a thread
+    "lfilter": ("iir", "babe_lfilter", [_P] * 4 + [_I, _LL, _I, _I, _P]),
 }
 SOURCES = tuple(sorted({src for src, _, _ in KERNELS.values()}))
 
@@ -1833,3 +1837,33 @@ def launch_act_rescale(acc: torch.Tensor, scale: torch.Tensor,
     _status("act_rescale", rc)
     LAUNCHES["act_rescale"] += 1
     return out
+
+
+# ------------------------------------------------- the IIR recursion
+
+IIR_REG_N = 16  # coefficients per side held in registers; more: scratch
+
+
+def launch_lfilter(x: torch.Tensor, coef: torch.Tensor,
+                   reverse: bool = False) -> torch.Tensor:
+    """The IIR recursion on the card: x (R, L) fp32 rows, coef (2n,) fp32
+    (b then a, both divided by a[0]); ``reverse`` filters each row back to
+    front (reads and writes reversed).  Returns y (R, L)."""
+    if x.dim() != 2:
+        raise ValueError(f"lfilter: x must be (R, L), got {tuple(x.shape)}")
+    _check(x, "lfilter x", torch.float32)
+    _check(coef, "lfilter coef", torch.float32)
+    if coef.dim() != 1 or coef.numel() % 2 or coef.numel() < 4:
+        raise ValueError(f"lfilter: coef must hold b then a, n >= 2 each, "
+                         f"got {tuple(coef.shape)}")
+    R, L = x.shape
+    n = coef.numel() // 2
+    y = torch.empty_like(x)
+    scratch = (torch.empty((R, n - 1), dtype=torch.float32, device=x.device)
+               if n > IIR_REG_N else None)
+    rc = _entry("lfilter")(x.data_ptr(), y.data_ptr(), coef.data_ptr(),
+                           None if scratch is None else scratch.data_ptr(),
+                           R, L, n, int(bool(reverse)), _stream(x))
+    _status("lfilter", rc)
+    LAUNCHES["lfilter"] += 1
+    return y

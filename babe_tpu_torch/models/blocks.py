@@ -132,9 +132,10 @@ class _ConvParams(nn.Module):
 class Conv2d(nn.Module):
     """'SAME' 2-D conv on (B, F, T, C), odd kernel (kf, kt), dilation
     (df, dt), dispatched as the JAX ``conv2d_same`` does: under an int8
-    config that makes it active (``set_int8``), (5,3) kernels with dilation
-    (d,1) run ``conv_int8`` (C8; with the caller's ``scale_hint`` its
-    hinted form) and, under ``ops="all"``, (1,1) kernels ``dot1x1_int8``;
+    config that makes it active (``set_int8``), its kernel runs
+    ``conv_int8`` (C8 for (5,3) at dilation (d,1), the int8 im2col product
+    otherwise; with the caller's ``scale_hint`` its hinted form) and, under
+    ``ops="all"``, (1,1) kernels ``dot1x1_int8``;
     else (1,1) kernels are matmuls (``conv1x1``); (5,3) kernels with
     dilation (d,1) go through ``conv5x3_dilated`` (kernel K1 on CUDA);
     every other kernel through ``dilated_conv_nhwc`` (kernel K4 on
@@ -202,12 +203,7 @@ class Conv2d(nn.Module):
     def _forward_int8(self, x, k, scale_hint):
         if self.kernel_size == (1, 1):
             return dot1x1_int8(x, k, self._quantized(k))
-        if self.kernel_size != (5, 3) or self.dilation[1] != 1:
-            raise NotImplementedError(
-                f"Conv2d: an int8 conv with kernel {self.kernel_size} and "
-                f"dilation {self.dilation} is not ported (the network's "
-                f"int8 convs are (5,3) at dilation (d,1) and 1x1)")
-        return conv_int8(x, k, self.dilation[0], bound=scale_hint,
+        return conv_int8(x, k, self.dilation, bound=scale_hint,
                          bwd=self.i8.bwd, qw=self._quantized(k),
                          qwT=lambda: self._quantized(k, flipped=True))
 

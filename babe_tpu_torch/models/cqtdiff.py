@@ -15,11 +15,12 @@ JAX ``nn.remat`` of the block): under autograd each block runs through
 ``torch.utils.checkpoint`` (non-reentrant), so only block boundaries are
 kept and each block's forward runs again in the backward.  With
 ``remat_policy="full"`` everything in the block is recomputed; with
-``"save_convs"`` the outputs of its ``Conv2d`` convs are kept from the
-first pass and the recompute runs only the rest (``ConvTape``: the JAX
-policy ``save_only_these_names("conv_out")``; the fused dilation stages
-carry no tag there and are recomputed).  Any other policy is "full", as
-in JAX.  Training at the flagship config uses remat; serving does not.
+``"save_convs"`` the outputs of its ``Conv2d`` convs and the conv
+outputs of its fused dilation stages are kept from the first pass and the
+recompute runs only the rest (``ConvTape``: the JAX policy
+``save_only_these_names("conv_out")``, whose default path runs each
+stage's conv as a tagged ``Conv2d``).  Any other policy is "full", as in
+JAX.  Training at the flagship config uses remat; serving does not.
 
 ``precision`` is an attribute of the network: ``"int8"`` reads the JAX
 package's int8 knobs from the environment when it is set

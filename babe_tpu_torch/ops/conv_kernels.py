@@ -46,8 +46,11 @@ Counterpart of ``babe_tpu/ops/conv_kernels.py``.  Layout is channels-last
     quantize in one launch, and ``act_quant`` at a bound), the (5,3)
     conv C8 (``csrc/conv_int8.cu``, ``conv_int8``: the stage engine's int8
     loop or a tile, with the rescale in its epilogue) and the 1x1 product
-    ``torch._int_mm`` (P1's GEMM at the shapes it does not take) rescaled
-    by Q8's ``act_rescale``; on the CPU their
+    ``torch._int_mm`` (P1's GEMM at the shapes it does not take, K
+    zero-padded to a multiple of 32) rescaled by Q8's ``act_rescale``;
+    ``conv_int8`` with any other odd kernel or dilation forms the int8
+    im2col and runs it through that product and the rescale (the JAX
+    package computes these in XLA); on the CPU their
     plain versions (``conv_int8_acc_ref``: the conv in float64 on the int
     values, exact).  The backward is straight-through from the saved
     int8 activation (never x, except the 1x1's plain vjp): dw = g (x)
@@ -150,12 +153,15 @@ class ConvTape:
     ``remat_policy="save_convs"`` (the JAX ``nn.remat`` policy
     ``save_only_these_names("conv_out")``, which saves what ``Conv2d``
     tags): the block runs under ``active()``.  On its first pass every conv
-    of a ``Conv2d`` keeps its output; when the backward recomputes the
-    block, each returns the kept output instead of running again.  A
-    conv's backward needs its input and weight, not its output, so it is
-    unchanged; the elementwise work and the fused stages around the convs
-    are recomputed, as in JAX, where the stage's internals carry no
-    tag."""
+    of a ``Conv2d`` keeps its output, and so does every fused dilation
+    stage (K2) its conv output c: the JAX default path runs each stage's
+    (5,3) conv as a ``Conv2d`` (``H_{i}``), whose output carries the tag.
+    When the backward recomputes the block, each conv returns its kept
+    output instead of running again, and each stage forms y and its
+    moments from its kept c with the stage's residual tail
+    (``_stage_tail``), without K2's forward.  A conv's backward needs its
+    input and weight, not its output, so it is unchanged; the elementwise
+    work around the convs is recomputed."""
 
     def __init__(self):
         self.outs: list[torch.Tensor] = []
@@ -171,14 +177,24 @@ class ConvTape:
             _TAPE = prev
             self.pos = 0
 
-    def take(self, compute):
-        if self.pos is None:
-            y = compute()
-            self.outs.append(y.detach())
-            return y
+    @property
+    def replaying(self) -> bool:
+        return self.pos is not None
+
+    def keep(self, t: torch.Tensor) -> None:
+        self.outs.append(t.detach())
+
+    def kept(self) -> torch.Tensor:
         y = self.outs[self.pos]
         self.pos += 1
         return y.detach()
+
+    def take(self, compute):
+        if self.replaying:
+            return self.kept()
+        y = compute()
+        self.keep(y)
+        return y
 
 
 _TAPE: ConvTape | None = None
@@ -332,13 +348,19 @@ def stage_gelu_ref(x, a):
     return _gelu_impl(x * _bcast(a, x.dtype))
 
 
-def _dil_stage_parts(x, a, s, w, d):
-    dt = x.dtype
-    h = stage_gelu_ref(x, a)
-    c = conv_ref(h, w.to(dt), d)
-    y = (x + c * _bcast(s, dt)) / _sqrt2(x)
+def _stage_tail(x, s, c):
+    """A stage's residual tail from its conv output c: y = (x + c*s) /
+    sqrt2 in x's dtype, and the moments [sum y, sum y^2] per (B, C)."""
+    y = (x + c * _bcast(s, x.dtype)) / _sqrt2(x)
     y32 = y.float()
     mom = torch.stack([y32.sum((1, 2)), (y32 * y32).sum((1, 2))])
+    return y, mom
+
+
+def _dil_stage_parts(x, a, s, w, d):
+    h = stage_gelu_ref(x, a)
+    c = conv_ref(h, w.to(x.dtype), d)
+    y, mom = _stage_tail(x, s, c)
     return y, mom, c
 
 
@@ -397,12 +419,20 @@ class _FusedStage(torch.autograd.Function):
     def forward(ctx, x, a, s, w, d):
         need_conv = any(ctx.needs_input_grad[:3])
         a, s, w = a.float(), s.float(), w.to(x.dtype)
-        if x.is_cuda:
-            y, mom, c = _k.launch_fused_stage(
-                x.contiguous(), a.contiguous(), s.contiguous(),
-                w.contiguous(), d, want_conv=need_conv)
+        if _TAPE is not None and _TAPE.replaying:
+            # save_convs' recompute: the kept conv output, not K2 again
+            c = _TAPE.kept()
+            y, mom = _stage_tail(x, s, c)
         else:
-            y, mom, c = _dil_stage_parts(x, a, s, w, d)
+            if x.is_cuda:
+                y, mom, c = _k.launch_fused_stage(
+                    x.contiguous(), a.contiguous(), s.contiguous(),
+                    w.contiguous(), d,
+                    want_conv=need_conv or _TAPE is not None)
+            else:
+                y, mom, c = _dil_stage_parts(x, a, s, w, d)
+            if _TAPE is not None:
+                _TAPE.keep(c)
         ctx.save_for_backward(x, a, s, w, y, c if need_conv else None)
         ctx.d = d
         return y, mom
@@ -758,13 +788,55 @@ def int8_scale(sx: torch.Tensor, sw: torch.Tensor) -> torch.Tensor:
     return (sx.float()[:, None] * sw.float()[None, :]).contiguous()
 
 
-def _conv_int8_q(qx, sx, qw, qwt, sw, d: int, dtype) -> torch.Tensor:
-    """The int8 (5,3) conv at dilation (d,1) of quantized qx with its
-    rescale, in ``dtype``: C8 on CUDA (tap-major kernel qwt), else the
-    plain accumulator and rescale (HWIO kernel qw)."""
+def _dil2(dilation) -> tuple[int, int]:
+    """A dilation as (df, dt): an int d is the stages' (d, 1)."""
+    if isinstance(dilation, int):
+        return int(dilation), 1
+    return tuple(int(v) for v in dilation)
+
+
+def im2col_int8(q: torch.Tensor, kshape, dilation) -> torch.Tensor:
+    """The 'SAME' taps of int8 q (B,F,T,C) for an odd kernel ``kshape`` at
+    ``dilation``, zero-padded: (B*F*T, KF*KT*C) int8, tap (i, j) major."""
+    kf, kt = (int(v) for v in kshape)
+    df, dt = _dil2(dilation)
+    B, F, T, C = q.shape
+    pf, pt = (kf - 1) // 2 * df, (kt - 1) // 2 * dt
+    qp = q.new_zeros((B, F + 2 * pf, T + 2 * pt, C))
+    qp[:, pf:pf + F, pt:pt + T] = q
+    return torch.cat([qp[:, i * df:i * df + F, j * dt:j * dt + T]
+                      for i in range(kf) for j in range(kt)],
+                     dim=-1).reshape(B * F * T, kf * kt * C)
+
+
+def conv_int8_acc(q: torch.Tensor, qw: torch.Tensor,
+                  dilation) -> torch.Tensor:
+    """The int32 accumulator of the 'SAME' conv of int8 q (B,F,T,C) with
+    the int8 HWIO kernel qw (KF,KT,C,N) at any odd kernel and dilation:
+    the im2col product through ``_int_mm`` (on CUDA the library's int8
+    product or P1, zero-padded where they need it; on the CPU float64)."""
+    B, F, T, _ = q.shape
+    N = qw.shape[3]
+    cols = im2col_int8(q, qw.shape[:2], dilation)
+    acc = _int_mm(cols, qw.permute(3, 0, 1, 2).reshape(N, -1).contiguous())
+    return acc.view(B, F, T, N)
+
+
+def _conv_int8_q(qx, sx, qw, qwt, sw, dilation, dtype) -> torch.Tensor:
+    """The int8 'SAME' conv of quantized qx with its rescale, in
+    ``dtype``.  On CUDA a (5,3) kernel at dilation (d,1) runs C8
+    (tap-major kernel qwt); any other odd kernel and dilation the int8
+    im2col product (``conv_int8_acc``) and Q8's rescale, as the JAX
+    package computes it in XLA.  On the CPU the plain accumulator and
+    rescale (HWIO kernel qw)."""
+    df, dt = _dil2(dilation)
     if qx.is_cuda:
-        return _k.launch_conv_int8(qx, qwt, int8_scale(sx, sw), d, dtype)
-    return int8_rescale_ref(conv_int8_acc_ref(qx, qw, (d, 1)), sx, sw,
+        if tuple(qw.shape[:2]) == (5, 3) and dt == 1:
+            return _k.launch_conv_int8(qx, qwt, int8_scale(sx, sw), df,
+                                       dtype)
+        return _k.launch_act_rescale(conv_int8_acc(qx, qw, (df, dt)),
+                                     int8_scale(sx, sw), dtype)
+    return int8_rescale_ref(conv_int8_acc_ref(qx, qw, (df, dt)), sx, sw,
                             dtype)
 
 
@@ -786,14 +858,27 @@ class QuantKernel:
         return cls(q, qt, s)
 
 
-def _int8_dx(g, w, d: int, qwT: QuantKernel | None) -> torch.Tensor:
-    """The input gradient of a (5,3) conv with kernel w at dilation (d,1):
-    with ``qwT`` (the quantized flipped, io-swapped kernel) the int8 conv
-    of g on per-item dynamic scales, else the exact transpose (K1)."""
+def _conv_transpose_any(g, w, dilation) -> torch.Tensor:
+    """The exact input gradient of a 'SAME' conv with kernel w: K1 for a
+    (5,3) kernel at dilation (d,1), else K4 (``dilated_conv``) with the
+    kernel flipped and io-swapped; the plain version on the CPU."""
+    df, dt = _dil2(dilation)
+    if tuple(w.shape[:2]) == (5, 3) and dt == 1:
+        return _conv_any(g, w, df, transposed=True)
+    if g.is_cuda:
+        return _k.launch_dilated_conv(g.contiguous(), _flip_io(w),
+                                      (df, dt))
+    return conv_taps(g, _flip_io(w), (df, dt))
+
+
+def _int8_dx(g, w, dilation, qwT: QuantKernel | None) -> torch.Tensor:
+    """The input gradient of a conv with kernel w at ``dilation``: with
+    ``qwT`` (the quantized flipped, io-swapped kernel) the int8 conv of g
+    on per-item dynamic scales, else the exact transpose."""
     if qwT is None:
-        return _conv_any(g, w, d, transposed=True)
+        return _conv_transpose_any(g, w, dilation)
     qg, sg = quant_act_per_item(g)
-    return _conv_int8_q(qg, sg, qwT.q, qwT.qt, qwT.s, d, g.dtype)
+    return _conv_int8_q(qg, sg, qwT.q, qwT.qt, qwT.s, dilation, g.dtype)
 
 
 class _ConvInt8(torch.autograd.Function):
@@ -824,14 +909,15 @@ class _ConvInt8(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             # dequant(qx): the true input of the quantized forward
             xhat = (qx.float() * sx.view(-1, 1, 1, 1)).to(g.dtype)
-            dw = _conv_dw_any(xhat, g, (5, 3), (d, 1)).to(w.dtype)
+            dw = _conv_dw_any(xhat, g, tuple(w.shape[:2]), d).to(w.dtype)
         return dx, dw, None, None, None, None
 
 
-def conv_int8(x, w, d: int, bound=None, bwd: bool = False,
+def conv_int8(x, w, d, bound=None, bwd: bool = False,
               qw: QuantKernel | None = None, qwT=None):
-    """'SAME' NHWC (5,3) conv at dilation (d,1) in int8 (JAX ``conv_int8``;
-    with ``bound`` (B,) fp32, an upper bound on max|x| per item, JAX
+    """'SAME' NHWC conv with any odd kernel in int8 at dilation ``d`` (an
+    int d is the stages' (d, 1); else (df, dt)) (JAX ``conv_int8``; with
+    ``bound`` (B,) fp32, an upper bound on max|x| per item, JAX
     ``conv_int8_hinted``).  Output in x's dtype; the bound gets no
     gradient.  ``bwd``: the input gradient is the int8 conv of g with the
     flipped, io-swapped kernel (``exact_backward()`` wins), else the exact
@@ -839,7 +925,9 @@ def conv_int8(x, w, d: int, bound=None, bwd: bool = False,
     flipped, io-swapped kernel (or a callable returning it), made here
     from w when not given."""
     B, F, T, C = x.shape
-    assert tuple(w.shape[:3]) == (5, 3, C), (tuple(w.shape), C)
+    kf, kt = int(w.shape[0]), int(w.shape[1])
+    assert kf % 2 == 1 and kt % 2 == 1 and w.shape[2] == C, (
+        tuple(w.shape), C)
     w = w.to(x.dtype)
     if qw is None:
         qw = QuantKernel.of(w)
@@ -847,26 +935,45 @@ def conv_int8(x, w, d: int, bound=None, bwd: bool = False,
         qwT = lambda: QuantKernel.of(_flip_io(w.detach()))  # noqa: E731
     if bound is not None:
         bound = bound.detach()
-    return _ConvInt8.apply(x, w, bound, qw, int(d), qwT if bwd else None)
+    return _ConvInt8.apply(x, w, bound, qw, _dil2(d), qwT if bwd else None)
+
+
+def int_mm_takes(M: int, K: int, N: int) -> bool:
+    """Whether ``torch._int_mm`` takes an (M, K) @ (K, N) int8 product
+    (M > 16, K and N multiples of 8)."""
+    return M > 16 and K % 8 == 0 and N % 8 == 0
+
+
+INT_MM_K = 32  # P1's K step for int8 (one 32-byte slice)
+
+
+def pad_int_mm(a: torch.Tensor, bt: torch.Tensor):
+    """a (M, K) and bt (N, K) int8 with K zero-padded to a multiple of 32:
+    the product's int32 sums are unchanged (the added terms are 0 * 0)."""
+    K = a.shape[1]
+    pad = -K % INT_MM_K
+    if pad == 0:
+        return a, bt
+    return (torch.nn.functional.pad(a, (0, pad)),
+            torch.nn.functional.pad(bt, (0, pad)))
 
 
 def _int_mm(qx2: torch.Tensor, qwt: torch.Tensor) -> torch.Tensor:
-    """int8 (M, K) @ (K, N) -> int32 (qwt is the (N, K) kernel): on CUDA
-    the library's int8 product (``torch._int_mm``, read column-major)
-    where it takes the shape (M > 16, K and N multiples of 8), else P1's
-    GEMM (``launch_probe_gemm``, K a multiple of 32); in float64 (exact)
-    on the CPU."""
-    if qx2.is_cuda:
-        M, K = qx2.shape
-        N = qwt.shape[0]
-        if M > 16 and K % 8 == 0 and N % 8 == 0:
-            return torch._int_mm(qx2, qwt.t())
-        if K % 32:
-            raise ValueError(f"dot1x1_int8: (M, K, N) = ({M}, {K}, {N}) is "
-                             f"a shape neither torch._int_mm (M > 16, K and "
-                             f"N multiples of 8) nor P1 (K a multiple of "
-                             f"32) takes")
-        return _k.launch_probe_gemm(qx2, qwt, reps=1)
+    """int8 (M, K) @ (K, N) -> int32 (qwt is the (N, K) kernel).  Where
+    ``torch._int_mm`` takes the shape it runs on CUDA (read
+    column-major); every other shape has K zero-padded to a multiple of 32
+    (``pad_int_mm``) and runs P1's GEMM (``launch_probe_gemm``), which
+    takes any M and N.  On the CPU the same (padded) operands multiply in
+    float64 (exact)."""
+    M, K = qx2.shape
+    N = qwt.shape[0]
+    if not int_mm_takes(M, K, N):
+        qx2, qwt = pad_int_mm(qx2, qwt)
+        if qx2.is_cuda:
+            return _k.launch_probe_gemm(qx2.contiguous(), qwt.contiguous(),
+                                        reps=1)
+    elif qx2.is_cuda:
+        return torch._int_mm(qx2, qwt.t())
     return (qx2.double() @ qwt.t().double()).round().to(torch.int32)
 
 

@@ -25,13 +25,14 @@ def make_fir(taps) -> Callable:
 
 
 def make_iir(b, a) -> Callable:
-    """cheby1-style IIR (b, a) through ``iir.lfilter``."""
-    return lambda x: iir.lfilter(x, a, b)
+    """cheby1-style IIR (b, a) through ``iir.lfilter``, its coefficients
+    held on each device once."""
+    return iir.IIR(b, a)
 
 
 def make_biquad(coeffs) -> Callable:
     b0, b1, b2, a0, a1, a2 = coeffs
-    return lambda x: iir.biquad(x, b0, b1, b2, a0, a1, a2)
+    return iir.IIR([b0, b1, b2], [a0, a1, a2])
 
 
 def make_decimate(factor: int) -> Callable:

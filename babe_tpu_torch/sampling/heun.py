@@ -188,12 +188,23 @@ class Sampler:
             t = self.edm.create_schedule(cfg.T)
         return t.tolist(), self.edm.get_gamma(t).tolist()
 
-    @staticmethod
-    def _move(x, t_i: float, g: float, gen, snoise: float = 1.0):
+    # (rows of the global batch, this rank's slice of them) while a rank
+    # samples its share of an unconditional batch: every draw is made at
+    # the global batch's size and sliced, so the share's samples are those
+    # of the whole batch (``predict_unconditional_rows``)
+    draw_rows: tuple[int, slice] | None = None
+
+    def _randn(self, shape, gen, device) -> torch.Tensor:
+        if self.draw_rows is None:
+            return _randn(shape, gen, device)
+        n, rows = self.draw_rows
+        return _randn((n, *shape[1:]), gen, device)[rows]
+
+    def _move(self, x, t_i: float, g: float, gen, snoise: float = 1.0):
         """The stochastic time move: (x + sqrt(t_hat^2 - t_i^2) eps snoise,
         t_hat) with t_hat = t_i (1 + g)."""
         t_hat = t_i + g * t_i
-        eps = _randn(x.shape, gen, x.device) * snoise
+        eps = self._randn(x.shape, gen, x.device) * snoise
         return x + math.sqrt(max(t_hat**2 - t_i**2, 0.0)) * eps, t_hat
 
     def _run(self, gen, shape, y=None, degradation=None, x_init=None,
@@ -209,7 +220,7 @@ class Sampler:
         if x_init is not None:
             x = x_init.to(dev, torch.float32)
         else:
-            x = _randn(shape, gen, dev) * t[0]
+            x = self._randn(shape, gen, dev) * t[0]
             if warm:
                 x = y + x
         dens = []
@@ -246,6 +257,17 @@ class Sampler:
     def predict_unconditional(self, gen, shape, rid: bool = False,
                               x_init=None):
         return self._run(gen, shape, rid=rid, x_init=x_init)
+
+    def predict_unconditional_rows(self, gen, shape, rows: slice):
+        """The ``rows`` of ``predict_unconditional(gen, shape)``, computed
+        alone: the clips are independent, and every noise draw is made at
+        the whole batch's size."""
+        local = (len(range(shape[0])[rows]), *shape[1:])
+        self.draw_rows = (shape[0], rows)
+        try:
+            return self._run(gen, local)
+        finally:
+            self.draw_rows = None
 
     def predict_conditional(self, gen, y, degradation, rid: bool = False,
                             x_init=None, score_postprocess=None):

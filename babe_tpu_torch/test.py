@@ -1,7 +1,9 @@
-"""Evaluation entry point of the port, on one device:
+"""Evaluation entry point of the port, on one device or over several
+processes:
 
     python -m babe_tpu_torch.test tester=blind_bwe network=cqtdiff+ \\
         exp=maestro22k_8s dset=maestro_allyears tester.checkpoint=<ckpt>
+    torchrun --nproc_per_node 4 -m babe_tpu_torch.test ...   # 4 cards
 
 Counterpart of the repository's ``test.py``: the same ``conf/`` overrides,
 the network, EDM, test set, optional STFT denoiser and tester built from
@@ -17,7 +19,10 @@ narrowest conv that runs int8, ``BABE_INT8_FUSED``, ``BABE_INT8_BWD``,
 ``BABE_INT8_SCALE``, ``BABE_INT8_OPS``; ``models/cqtdiff.py``) its int8
 configuration.  It runs on the card, and then ends with a
 line ``kernel launches: {...}`` (each hand kernel's launches in the run);
-the override ``device=cpu`` runs the plain PyTorch path on the CPU.
+the override ``device=cpu`` runs the plain PyTorch path on the CPU.  Under
+``torchrun`` each process joins the group
+(``parallel.mesh.init_distributed``) and the tester spreads its sharded
+modes over them, rank 0 writing the files.
 """
 
 from __future__ import annotations
@@ -46,7 +51,10 @@ def _main(args, device="cuda", overrides=None):
                                       setup_network, tester_class)
     from babe_tpu_torch.utils.device import check_device
 
+    from babe_tpu_torch.parallel.mesh import init_distributed
+
     device = check_device(device, "babe_tpu_torch.test")
+    init_distributed(device=device)
     os.makedirs(str(args.model_dir), exist_ok=True)
     overrides = sys.argv[1:] if overrides is None else overrides
     if not any(ov.startswith("exp.remat=") for ov in overrides):

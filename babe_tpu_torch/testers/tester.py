@@ -28,6 +28,17 @@ built model (``.ckpt`` pickles of either package, and the reference's
 ``.pt`` torch checkpoints through ``utils/torch_ckpt.py``, with the frame
 self-check), the sampler factory, the STFT denoiser chain and the
 autoregressive long-input loop (``_ar_loop``).
+
+Over a mesh of several processes (``parallel/mesh.py``; the JAX tester's
+evaluation mesh) ``unconditional`` spreads its clips where their count
+divides the ranks, ``bwe`` and ``blind_bwe`` spread their test items, and
+``formal_test_bwe`` its OLA chunk batches (informed) or chunks (blind),
+over the ranks, each rank drawing every unit's keys so that the key stream
+is the one-process run's; a count that does not divide the ranks runs
+unsharded on every rank, with a note.  The results are gathered to rank
+0, which alone writes files.  The other modes run on rank 0 alone (the
+generator's state is handed from rank 0 to the others before each
+sharded mode).
 """
 
 from __future__ import annotations
@@ -45,6 +56,8 @@ from babe_tpu_torch.ops.filters import design_filter, filter_db_mse
 from babe_tpu_torch.ops.fir import get_FIR_lowpass
 from babe_tpu_torch.ops.resample import resample
 from babe_tpu_torch.ops.stft import apply_filter, rfftfreq
+from babe_tpu_torch.parallel.mesh import (broadcast_object, gather_batch,
+                                          gather_objects, make_mesh)
 from babe_tpu_torch.sampling import degradations as D
 from babe_tpu_torch.sampling.blind import BlindConfig, BlindSampler
 from babe_tpu_torch.sampling.heun import SamplerConfig
@@ -116,14 +129,24 @@ def read_checkpoint(path: str) -> dict:
     return payload
 
 
+# the modes that spread their items over the ranks of a mesh
+SHARDED_MODES = ("unconditional", "bwe", "blind_bwe", "formal_test_bwe")
+
+
 class Tester:
     def __init__(self, args, model, diff_params: EDM, device="cuda",
-                 test_set=None, denoiser=None):
+                 test_set=None, denoiser=None, mesh=None):
+        """``mesh``: the processes the sharded modes spread over (every
+        process of the group by default)."""
         self.args = args
         self.model = model
         self.test_set = test_set  # items (audio, fs, name)
         self.denoiser = denoiser  # models.denoiser.MultiStageDenoiser
         self.device = torch.device(device)
+        self.mesh = mesh if mesh is not None else make_mesh(
+            device=self.device)
+        self._queued: list[int] | None = None  # a unit's key seeds
+        self._unsharded_warned: set[int] = set()
         self.it = 0
         self.gen = torch.Generator().manual_seed(
             int(args.exp.get("seed", 42)) + 1)
@@ -155,10 +178,56 @@ class Tester:
     def seed(self, seed: int) -> None:
         self.gen = torch.Generator().manual_seed(int(seed))
 
+    def _next_seed(self) -> int:
+        return int(torch.randint(0, 2**62, (1,), generator=self.gen))
+
     def next_key(self) -> torch.Generator:
-        """A fresh device generator, seeded from the tester's stream."""
-        s = int(torch.randint(0, 2**62, (1,), generator=self.gen))
+        """A fresh device generator, seeded from the tester's stream (or,
+        inside a sharded unit, from the seeds drawn for it)."""
+        s = self._queued.pop(0) if self._queued else self._next_seed()
         return torch.Generator(device=self.device).manual_seed(s)
+
+    def _share(self, n: int) -> range:
+        """The units of ``n`` this rank runs: its contiguous share, or all
+        of them where ``n`` does not divide the ranks (noted once per
+        ``n``)."""
+        m = self.mesh
+        if m.size == 1:
+            return range(n)
+        if n % m.size:
+            if n not in self._unsharded_warned:
+                self._unsharded_warned.add(n)
+                print(f"NOTE: {n} units do not divide {m.size} processes; "
+                      f"every process runs them all, unsharded")
+            return range(n)
+        r = m.rows(n)
+        return range(r.start, r.stop)
+
+    def _sharded(self, n: int, keys_per_unit: int, run) -> list:
+        """``run(k)`` for this rank's units k of ``n``, each drawing its
+        ``keys_per_unit`` keys as a one-process run would (every rank
+        draws every unit's seeds, in order); every unit's result, in
+        order, on every rank."""
+        seeds = [[self._next_seed() for _ in range(keys_per_unit)]
+                 for _ in range(n)]
+        mine = self._share(n)
+        outs = []
+        for k in mine:
+            self._queued = list(seeds[k])
+            try:
+                outs.append(run(k))
+            finally:
+                self._queued = None
+        if len(mine) == n:
+            return outs
+        return [o for part in gather_objects(self.mesh, outs) for o in part]
+
+    def _item(self, i: int):
+        """Test item ``i`` as (i, [1, audio_len] float32 on the device,
+        name without extension)."""
+        original, fs, name = self.test_set[i]
+        return (i, self._dev(self.resample_audio(original, fs)),
+                os.path.splitext(name)[0])
 
     def load_checkpoint(self, path: str):
         """Load a ``.ckpt`` pickle (the EMA weights when present) or a
@@ -345,9 +414,7 @@ class Tester:
         """The test set's items as (index, [1, audio_len] float32 on the
         device, name without extension)."""
         for i in range(len(self.test_set)):
-            original, fs, name = self.test_set[i]
-            yield (i, self._dev(self.resample_audio(original, fs)),
-                   os.path.splitext(name)[0])
+            yield self._item(i)
 
     def _recordings(self, path: str, num: int | None = None) -> list[str]:
         files = sorted(_glob.glob(os.path.join(path, "*.wav")))
@@ -478,11 +545,21 @@ class Tester:
         written as one wav."""
         ucfg = self.args.tester.unconditional
         shape = (int(ucfg.num_samples), int(ucfg.audio_len))
-        preds = self._host(self.sampler().predict_unconditional(
-            self.next_key(), shape))
-        write_audio_file(preds, self.fs, "unconditional",
-                         self.paths["unconditional"])
+        preds = self._host(self.unconditional(self.next_key(), shape))
+        if self.mesh.is_main:
+            write_audio_file(preds, self.fs, "unconditional",
+                             self.paths["unconditional"])
         return preds
+
+    def unconditional(self, gen, shape) -> torch.Tensor:
+        """``predict_unconditional(gen, shape)``; over a mesh whose size
+        divides the clips, each rank samples its rows and the batch is
+        gathered (the JAX tester's data-parallel ``out_shardings``)."""
+        m, s = self.mesh, self.sampler()
+        if m.size == 1 or shape[0] % m.size:
+            return s.predict_unconditional(gen, shape)
+        return gather_batch(m, s.predict_unconditional_rows(
+            gen, shape, m.rows(shape[0])))
 
     def test_inpainting(self):
         """Restore a gap of ``inpainting.gap_length`` ms in each test item
@@ -529,8 +606,9 @@ class Tester:
         os.makedirs(path, exist_ok=True)
         s = self.sampler()
         snr = self.args.tester.blind_bwe.get("SNR_observations", "None")
-        outs = []
-        for i, seg, n in self._items():
+
+        def run(k):
+            i, seg, n = self._item(k)
             if ftype == "fc_A":
                 y = self.apply_lowpass_fcA(seg, filt)
             else:
@@ -539,29 +617,48 @@ class Tester:
             out = s.predict_bwe(self.next_key(), y, filt, ftype,
                                 test_filter_fit=test_filter_fit,
                                 compute_sweep=compute_sweep)
-            pred = out[0] if test_filter_fit else out
+            rec = {"i": i, "n": n, "seg": self._host(seg),
+                   "y": self._host(y),
+                   "pred": self._host(out[0] if test_filter_fit else out)}
             if test_filter_fit:
-                _, dens, t, filts = out[:4]
+                rec.update(zip(("dens", "t", "filts"), (
+                    self._host(v) for v in out[1:4])))
                 if compute_sweep:
-                    np.save(os.path.join(path, f"data_norms{i}.npy"),
-                            self._host(out[4]))
-                    np.save(os.path.join(path, f"data_grads{i}.npy"),
-                            self._host(out[5]))
-                ulog.save_trajectory(path, n + "_filter_fit", denoised=dens,
-                                     t=t, filters=filts)
-                parametric = ftype == "fc_A"  # plotted beside the fit
-                ulog.plot_filter_response(
-                    [filts[-1], filt] if parametric else [filts[-1]],
-                    rfftfreq(self.blind_cfg.nfft, self.fs),
-                    os.path.join(path, n + "_fitted_filter.png"),
-                    labels=(["fitted", "reference"] if parametric
-                            else ["fitted"]))
-            pred = self._host(pred)
-            outs.append(pred)
-            write_audio_file(seg, self.fs, n, path + "_original")
-            write_audio_file(y, self.fs, n, path + "_degraded")
-            write_audio_file(pred, self.fs, n, path + "_reconstructed")
+                    rec["norms"], rec["grads"] = (self._host(v)
+                                                  for v in out[4:6])
+            return rec
+
+        recs = self._sharded(len(self.test_set),
+                             1 + (snr not in (None, "None")), run)
+        if self.mesh.is_main:
+            for rec in recs:
+                self._write_bwe(rec, path, filt, ftype)
+        outs = [rec["pred"] for rec in recs]
         return np.concatenate(outs, 0) if outs else None
+
+    def _write_bwe(self, rec: dict, path: str, filt, ftype: str) -> None:
+        """The files of one ``test_bwe`` item."""
+        i, n = rec["i"], rec["n"]
+        if "filts" in rec:
+            if "norms" in rec:
+                np.save(os.path.join(path, f"data_norms{i}.npy"),
+                        rec["norms"])
+                np.save(os.path.join(path, f"data_grads{i}.npy"),
+                        rec["grads"])
+            filts = rec["filts"]
+            ulog.save_trajectory(path, n + "_filter_fit",
+                                 denoised=rec["dens"], t=rec["t"],
+                                 filters=filts)
+            parametric = ftype == "fc_A"  # plotted beside the fit
+            ulog.plot_filter_response(
+                [filts[-1], filt] if parametric else [filts[-1]],
+                rfftfreq(self.blind_cfg.nfft, self.fs),
+                os.path.join(path, n + "_fitted_filter.png"),
+                labels=(["fitted", "reference"] if parametric
+                        else ["fitted"]))
+        write_audio_file(rec["seg"], self.fs, n, path + "_original")
+        write_audio_file(rec["y"], self.fs, n, path + "_degraded")
+        write_audio_file(rec["pred"], self.fs, n, path + "_reconstructed")
 
     def test_blind_bwe(self, typefilter="fc_A", compute_sweep=False):
         """Blind BWE of each test item low-passed by the test filter: one
@@ -577,8 +674,10 @@ class Tester:
         fc0 = float(da_filter[0][0])
         path = self.paths["blind_bwe"]
         s = self.sampler()
-        results = []
-        for i, seg, n in self._items():
+        snr = bb.get("SNR_observations", "None")
+
+        def run(k):
+            i, seg, n = self._item(k)
             sn = bb.get("sigma_norm", "None")
             if sn not in (None, "None"):
                 seg = float(sn) * seg / seg.std(-1, correction=0,
@@ -587,38 +686,49 @@ class Tester:
             if gain != 0:
                 seg = seg * 10 ** (gain / 20)
             y = self.apply_lowpass_fcA(seg, da_filter)
-            y = self._maybe_add_snr_noise(y, bb.get("SNR_observations",
-                                                    "None"))
+            y = self._maybe_add_snr_noise(y, snr)
             pred, est, dens, t, filts, scores = s.predict_blind_bwe(
                 self.next_key(), y, rid=True)
             y_est = self.apply_lowpass_fcA(seg, est)
-            self.metrics.log(
-                {"mode": "blind_bwe", "item": n,
-                 "filter_db_mse": float(filter_db_mse(self._dev(da_filter),
-                                                      est, freqs)),
-                 "lsd": float(lsd(seg, pred).mean()),
-                 "lsd_high_band": float(lsd_high_band(seg, pred, self.fs,
-                                                      fc0).mean()),
-                 # the degraded input's: the numbers BWE must beat
-                 "lsd_degraded": float(lsd(seg, y).mean()),
-                 "lsd_high_band_degraded": float(lsd_high_band(
-                     seg, y, self.fs, fc0).mean()),
-                 "fc_est": self._host(est[0]).tolist(),
-                 "A_est": self._host(est[1]).tolist()},
-                step=i)
-            for tag, audio in (("original", seg), ("degraded", y),
-                               ("reconstructed", pred), ("estimate", y_est)):
-                write_audio_file(audio, self.fs, n, path + "_" + tag)
-            ulog.save_trajectory(path, n + "_rid", denoised=dens, t=t,
-                                 filters=filts, score=scores)
-            ulog.diffusion_spec_animation(
-                dens, t, os.path.join(path, n + "_anim.gif"), fs=self.fs)
-            ulog.plot_filter_response(
-                [est, da_filter], rfftfreq(self.blind_cfg.nfft, self.fs),
-                os.path.join(path, n + "_filter.png"),
-                labels=["estimated", "reference"])
-            results.append((self._host(pred), self._host(est)))
-        return results
+            record = {
+                "mode": "blind_bwe", "item": n,
+                "filter_db_mse": float(filter_db_mse(self._dev(da_filter),
+                                                     est, freqs)),
+                "lsd": float(lsd(seg, pred).mean()),
+                "lsd_high_band": float(lsd_high_band(seg, pred, self.fs,
+                                                     fc0).mean()),
+                # the degraded input's: the numbers BWE must beat
+                "lsd_degraded": float(lsd(seg, y).mean()),
+                "lsd_high_band_degraded": float(lsd_high_band(
+                    seg, y, self.fs, fc0).mean()),
+                "fc_est": self._host(est[0]).tolist(),
+                "A_est": self._host(est[1]).tolist()}
+            host = {k_: self._host(v) for k_, v in (
+                ("original", seg), ("degraded", y), ("reconstructed", pred),
+                ("estimate", y_est), ("est", est), ("dens", dens), ("t", t),
+                ("filts", filts), ("scores", scores))}
+            return i, n, record, host
+
+        out = self._sharded(len(self.test_set),
+                            1 + (snr not in (None, "None")), run)
+        if self.mesh.is_main:
+            for i, n, record, h in out:
+                self.metrics.log(record, step=i)
+                for tag in ("original", "degraded", "reconstructed",
+                            "estimate"):
+                    write_audio_file(h[tag], self.fs, n, path + "_" + tag)
+                ulog.save_trajectory(path, n + "_rid", denoised=h["dens"],
+                                     t=h["t"], filters=h["filts"],
+                                     score=h["scores"])
+                ulog.diffusion_spec_animation(
+                    h["dens"], h["t"], os.path.join(path, n + "_anim.gif"),
+                    fs=self.fs)
+                ulog.plot_filter_response(
+                    [h["est"], da_filter],
+                    rfftfreq(self.blind_cfg.nfft, self.fs),
+                    os.path.join(path, n + "_filter.png"),
+                    labels=["estimated", "reference"])
+        return [(h["reconstructed"], h["est"]) for _, _, _, h in out]
 
     def test_real_blind_bwe(self, typefilter="fc_A", compute_sweep=False):
         """Blind BWE of the first ``real_recordings.num_samples`` wavs of
@@ -716,28 +826,32 @@ class Tester:
                 segs = np.stack(segs)  # [n_chunks, segL]
                 if blind:
                     # each chunk its own request: its own noise, filter
-                    # fit and guidance normalisation
-                    preds, ests = [], []
-                    for row in range(segs.shape[0]):
+                    # fit and guidance normalisation; the chunks spread
+                    # over the ranks
+                    def blind_chunk(row):
                         pred, est = s.predict_blind_bwe(
                             self.next_key(), self._dev(segs[row : row + 1]))
-                        preds.append(self._host(pred)[0])
-                        ests.append(self._host(est))
-                    preds = np.stack(preds)
-                    filter_data = [((row,), ests[row])
-                                   for row in range(len(ests))]
+                        return self._host(pred)[0], self._host(est)
+
+                    out = self._sharded(segs.shape[0], 1, blind_chunk)
+                    preds = np.stack([p for p, _ in out])
+                    filter_data = [((row,), est)
+                                   for row, (_, est) in enumerate(out)]
                 else:
                     # full batches of cb (the last one padded with copies
                     # of the last segment): the guidance is normalised
-                    # over each batch, as in the JAX package
+                    # over each batch, as in the JAX package; the batches
+                    # spread over the ranks
                     cb = max(int(ft.get("chunk_batch", 4)), 1)
                     reps = -segs.shape[0] % cb
                     segs_in = np.concatenate([segs, segs[-1:].repeat(reps,
                                                                      0)], 0)
-                    preds = np.concatenate([self._host(s.predict_bwe(
-                        self.next_key(), self._dev(segs_in[b0 : b0 + cb]),
-                        filt, ftype)) for b0 in range(0, segs_in.shape[0],
-                                                      cb)], 0)
+                    preds = np.concatenate(self._sharded(
+                        segs_in.shape[0] // cb, 1,
+                        lambda k: self._host(s.predict_bwe(
+                            self.next_key(),
+                            self._dev(segs_in[k * cb : (k + 1) * cb]), filt,
+                            ftype))), 0)
                     preds = preds[: segs.shape[0]]
                 for row, ix in enumerate(starts):
                     win = preds[row, : segL - discard_end].copy()
@@ -765,6 +879,8 @@ class Tester:
                         final[0, sp : sp + xf] = (
                             final[0, sp : sp + xf] * ramp
                             + degraded[0, sp : sp + xf] * (1.0 - ramp))
+            if not self.mesh.is_main:
+                continue
             write_audio_file(final, self.fs, n, path_out)
             if blind:
                 with open(os.path.join(path_out, n + ".filter_data.pkl"),
@@ -923,6 +1039,14 @@ class Tester:
         for mode in list(self.args.tester.modes):
             if mode not in runs:
                 raise NotImplementedError(f"tester mode {mode!r}")
+            if self.mesh.size > 1:
+                if mode not in SHARDED_MODES:
+                    if self.mesh.is_main:  # rank 0 alone
+                        results[mode] = runs[mode]()
+                    continue
+                # rank 0's key stream, which the unsharded modes moved on
+                self.gen.set_state(broadcast_object(self.mesh,
+                                                    self.gen.get_state()))
             results[mode] = runs[mode]()
         self.close()
         return results

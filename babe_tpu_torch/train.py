@@ -1,8 +1,10 @@
-"""Training entry point of the port, on one device:
+"""Training entry point of the port, on one device or data-parallel over
+several processes:
 
     python -m babe_tpu_torch.train dset=musicnet dset.path=<wavs> \\
         exp=maestro22k_8s network=cqtdiff+ model_dir=experiments/run1 \\
         tester.do_test=false
+    torchrun --nproc_per_node 4 -m babe_tpu_torch.train ...   # 4 cards
 
 Counterpart of the repository's ``train.py``: the same ``conf/`` overrides,
 the training stream, network, diffusion family (``diff_params=edm``,
@@ -13,9 +15,12 @@ final checkpoint that both packages' loaders read.  With
 network of the same config holds the teacher (the checkpoint's EMA, else
 its params, and its buffers), frozen, and the trainer distills it at
 ``diff_params.PD.stage``.  With ``tester.do_test`` a tester on its own
-network runs the demos every ``logging.heavy_log_interval`` steps.  It
-runs on the card; the override ``device=cpu`` runs the plain PyTorch path
-on the CPU.
+network runs the demos every ``logging.heavy_log_interval`` steps (on
+rank 0).  It runs on the card; the override ``device=cpu`` runs the plain
+PyTorch path on the CPU.  Under ``torchrun`` each process joins the group
+(``parallel.mesh.init_distributed``: NCCL on the cards, gloo with
+``device=cpu``) and takes its rows of each batch (``mesh_for_batch``:
+``exp.batch`` must divide the process count, as in ``train.py``).
 """
 
 from __future__ import annotations
@@ -26,9 +31,15 @@ import sys
 
 def _main(args, device="cuda"):
     from babe_tpu_torch.data.datasets import setup_dataset
+    from babe_tpu_torch.parallel.mesh import init_distributed, mesh_for_batch
     from babe_tpu_torch.setup import (setup_diff_parameters, setup_network,
                                       trainer_class)
 
+    init_distributed(device=device)
+    n_batch = int(args.exp.batch)
+    # a hard error (never a silent one-process fallback) when the batch
+    # cannot be split over the processes
+    mesh = mesh_for_batch(n_batch, device=device)
     dirname = str(args.model_dir)
     os.makedirs(dirname, exist_ok=True)
     args.exp["model_dir"] = dirname
@@ -36,19 +47,22 @@ def _main(args, device="cuda"):
     model = setup_network(args)
     diff_params = setup_diff_parameters(args, cqt_hpf=model.apply_hpf_DC)
     teacher = _load_teacher(args, device)
-    tester = _demo_tester(args, diff_params, device)
+    tester = _demo_tester(args, diff_params, device) if mesh.is_main else None
     trainer_cls = trainer_class(args.exp.get(
         "trainer_callable", "training.trainer.Trainer"))
-    print(f"training on 1 device ({device}), batch {int(args.exp.batch)}")
+    print(f"training on {mesh.size} device(s) ({mesh.device}), batch "
+          f"{n_batch}")
     try:
         trainer = trainer_cls(args, dset, model, diff_params, device=device,
-                              tester=tester, teacher=teacher)
+                              tester=tester, teacher=teacher, mesh=mesh)
         print(f"total params: {trainer.total_params / 1e6:.2f} M")
         total_its = args.exp.get("total_its", None)
         trainer.training_loop(
             max_its=None if total_its in (None, "None") else int(total_its))
         if bool(args.get_path("logging.save_model", True)):
-            print("saved final checkpoint:", trainer.save_checkpoint())
+            path = trainer.save_checkpoint()
+            if mesh.is_main:
+                print("saved final checkpoint:", path)
     finally:
         dset.close()
     return trainer
@@ -93,9 +107,13 @@ def _demo_tester(args, diff_params, device):
             # bwe say that it is missing
             print(f"warning: test set unavailable ({e}); the demos run "
                   "without it")
+    from babe_tpu_torch.parallel.mesh import make_mesh
+
     net = setup_network(args)
     net.net.remat = False
-    return Tester(args, net, diff_params, device=device, test_set=test_set)
+    # rank 0 runs the demos alone
+    return Tester(args, net, diff_params, device=device, test_set=test_set,
+                  mesh=make_mesh(1, device=device))
 
 
 def main(argv=None):

@@ -46,9 +46,19 @@ tester's generator, so the training draws do not move.  A failed demo
 prints its traceback and training goes on, unless
 ``logging.strict_demos`` or ``BABE_STRICT_DEMOS`` asks it to re-raise.
 
+With a ``mesh`` over the process group (``parallel/mesh.py``; the JAX
+trainer's data-parallel ``NamedSharding``), every rank reads the same
+seeded global batch and draws that batch's sigmas and noise (or PD's step
+pairs and noise) from the same generator, then keeps its own rows; each
+rank's mean loss is scaled by its share of the batch, the gradients are
+summed over the ranks by one fp32 ``all_reduce`` before the clip, and
+Adam and the EMA run identically on every rank, from weights broadcast
+from rank 0.  So a step does not depend on how the batch is split, as in
+JAX, where sharding moves no draw.  Only rank 0 writes checkpoints, logs
+and demos.
+
 Not ported: the orbax checkpoint backend (``exp.ckpt_backend`` other than
-pickle raises ``NotImplementedError`` naming ROADMAP.md).  The trainer
-runs on one device.
+pickle raises ``NotImplementedError`` naming ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -66,6 +76,13 @@ import torch
 
 from babe_tpu_torch.ops.conv_kernels import exact_backward
 from babe_tpu_torch.ops.resample import resample, resample_batch
+from babe_tpu_torch.parallel.mesh import (
+    all_reduce_sum,
+    broadcast_,
+    gather_batch,
+    make_mesh,
+    shard_batch,
+)
 from babe_tpu_torch.testers.tester import read_checkpoint
 from babe_tpu_torch.utils.device import check_device
 from babe_tpu_torch.utils.logging import (
@@ -89,20 +106,24 @@ def _not_ported(what: str):
 
 
 class Trainer:
-    """The training loop around one model on one device."""
+    """The training loop around one model, on one device or data-parallel
+    over the processes of a mesh."""
 
     def __init__(self, args, dset, model, edm, device="cuda", tester=None,
-                 teacher=None):
+                 teacher=None, mesh=None):
         """``tester``: a ``Tester`` on its own network, for the demos of
         ``heavy_logging``.  ``teacher``: a frozen model (``apply(x,
         cnoise)``) for progressive distillation; it requires EDMPD diff
-        params."""
+        params.  ``mesh``: the processes the batch is split over (this
+        process alone by default)."""
         if str(args.exp.get("ckpt_backend", "pickle")).lower() != "pickle":
             raise _not_ported("the orbax checkpoint backend")
         if teacher is not None and not hasattr(edm, "loss_fn_PD"):
             raise ValueError("a PD teacher requires EDMPD diff params "
                              "(diff_params=edm_PD)")
         self.device = check_device(device)
+        self.mesh = mesh if mesh is not None else make_mesh(
+            1, device=self.device)
         self.args, self.dset, self.model, self.edm = args, dset, model, edm
         self.tester = tester
         exp = args.exp
@@ -117,6 +138,7 @@ class Trainer:
             if teacher is not None:
                 teacher.net.set_precision("int8")
         self.params = dict(self.net.named_parameters())
+        broadcast_(self.mesh, [*self.params.values(), *self.net.buffers()])
         self.ema = {k: p.detach().clone() for k, p in self.params.items()}
         self.mu = {k: torch.zeros_like(p) for k, p in self.params.items()}
         self.nu = {k: torch.zeros_like(p) for k, p in self.params.items()}
@@ -149,8 +171,9 @@ class Trainer:
         self._resumed = False
         if bool(exp.get("resume", False)):
             self._resumed = self.resume_from_checkpoint()
-        self.metrics_log = MetricsLogger(
+        self.metrics_log = (MetricsLogger(
             os.path.join(str(args.model_dir), "train_logs"))
+            if self.mesh.is_main else None)
         self.profiler = ScheduledProfiler.from_config(args)
         self._stat_buffer: list[dict] = []
 
@@ -172,9 +195,12 @@ class Trainer:
 
     def save_checkpoint(self) -> str:
         """``<model_dir>/<exp_name>-<it>.ckpt``: it, params, buffers,
-        opt_state, ema and args, as the JAX trainer writes it."""
-        os.makedirs(str(self.args.model_dir), exist_ok=True)
+        opt_state, ema and args, as the JAX trainer writes it (rank 0
+        writes; every rank returns the path)."""
         path = self._ckpt_path(self.it)
+        if not self.mesh.is_main:
+            return path
+        os.makedirs(str(self.args.model_dir), exist_ok=True)
         with open(path, "wb") as f:
             pickle.dump(dict(self._state_payload(), args=self.args.to_dict()),
                         f)
@@ -244,10 +270,23 @@ class Trainer:
                                    self.teacher.apply, x, self.pd_stage,
                                    j=j, noise=noise)
 
+    def _draws(self, x, sigma, noise, j):
+        """The global batch's draws of one round, as its loss makes them:
+        (sigma, noise, j) with those not given drawn from the generator."""
+        if self.teacher is None:
+            sigma, noise = self.edm.train_draws(self.gen, x, sigma, noise)
+        else:
+            _, j, _, noise = self.edm.pd_draws(self.gen, x, self.pd_stage, j,
+                                               noise)
+        return sigma, noise, j
+
     def _grads(self, x, sigma=None, noise=None, j=None):
         """(loss, grads, error2, sigma): the mean of the rounds' losses and
-        gradients (a batch of exp.batch items per round)."""
+        gradients (a batch of exp.batch items per round); over a mesh, of
+        the global batch, each rank computing its rows and the gradients
+        summed over the ranks."""
         rounds = self.num_accum
+        mesh = self.mesh
         xs = x.reshape(rounds, -1, x.shape[-1])
         for p in self.params.values():
             p.grad = None
@@ -258,16 +297,28 @@ class Trainer:
                                                     v.shape[-1])[r]
 
         for r in range(rounds):
+            xr, args = xs[r], (part(sigma, r), part(noise, r), part(j, r))
+            if mesh.joined:
+                # every rank draws the global round's, then keeps its rows
+                xr, *args = shard_batch(mesh, (xr, *self._draws(xr, *args)))
             with exact_backward():
-                err2, sig = self._loss(xs[r], part(sigma, r),
-                                       part(noise, r), part(j, r))
+                err2, sig = self._loss(xr, *args)
                 loss = err2.mean()
+                if mesh.joined:
+                    loss = loss * (xr.shape[0] / xs.shape[1])
                 loss.backward()
             losses.append(loss.detach())
             e2s.append(err2.detach())
             sigs.append(sig.detach())
         grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for k, p in self.params.items()}
+        if mesh.joined:
+            summed = all_reduce_sum(mesh, [*grads.values(),
+                                           torch.stack(losses)])
+            grads = dict(zip(grads, summed[:-1]))
+            losses = list(summed[-1])
+            e2s = [gather_batch(mesh, e) for e in e2s]
+            sigs = [gather_batch(mesh, v) for v in sigs]
         loss = losses[0]
         if rounds > 1:
             grads = {k: g / rounds for k, g in grads.items()}
@@ -368,8 +419,9 @@ class Trainer:
         """Mean CQT magnitude of the training error per octave."""
         err2, _ = self.edm.loss_fn(self.gen, self.model.apply, batch)
         coeffs = self.model.cqt.fwd(torch.sqrt(err2))
-        self.metrics_log.log({f"error_oct_{o}": float(c.abs().mean())
-                              for o, c in enumerate(coeffs)}, step=it)
+        if self.metrics_log is not None:
+            self.metrics_log.log({f"error_oct_{o}": float(c.abs().mean())
+                                  for o, c in enumerate(coeffs)}, step=it)
 
     @torch.no_grad()
     def log_feature_stats(self, it: int, batch: torch.Tensor):
@@ -400,7 +452,8 @@ class Trainer:
         finally:
             for h in hooks:
                 h.remove()
-        self.metrics_log.log(rec, step=it)
+        if self.metrics_log is not None:
+            self.metrics_log.log(rec, step=it)
 
     def heavy_logging(self, it: int):
         """The tester's demos from the current EMA weights: an unconditional
@@ -451,6 +504,7 @@ class Trainer:
             metrics = self._step(batch)
             self.profiler.step()
             it = self.it
+            main = self.mesh.is_main
             if metrics["nonfinite"]:
                 streak += 1
                 print(f"WARNING: non-finite loss/grads at it {it} — update "
@@ -462,14 +516,16 @@ class Trainer:
                         f"logging.max_consecutive_nonfinite)")
             else:
                 streak = 0
-                self._stat_buffer.append(
-                    {k: (v.cpu().numpy() if torch.is_tensor(v) else v)
-                     for k, v in metrics.items()})
-            if it % log_interval == 0:
+                if main:  # rank 0's easy_logging empties the buffer
+                    self._stat_buffer.append(
+                        {k: (v.cpu().numpy() if torch.is_tensor(v) else v)
+                         for k, v in metrics.items()})
+            if main and it % log_interval == 0:
                 rate = (it - it0) / max(time.time() - t_start, 1e-9)
                 print(f"it {it} loss {float(metrics['loss']):.5f} it/s "
                       f"{rate:.2f}", flush=True)
                 self.easy_logging(it)
+            # these draw from the training generator: every rank runs them
             if freq_interval and it % freq_interval == 0:
                 self.freq_logging(it, batch)
             if feat_interval and it > 0 and it % feat_interval == 0:
@@ -477,7 +533,8 @@ class Trainer:
             if (it > 0 and it % save_interval == 0
                     and log_cfg.get("save_model", True)):
                 self.save_checkpoint()
-            if heavy_interval and it > 0 and it % heavy_interval == 0:
+            if (main and heavy_interval and it > 0
+                    and it % heavy_interval == 0):
                 self.heavy_logging(it)
         self.profiler.close()
         return self

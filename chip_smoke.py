@@ -4,6 +4,7 @@
     python3 chip_smoke.py                       # every default phase
     python3 chip_smoke.py --phases identify,profile   # a time breakdown
     python3 chip_smoke.py --phases identify,iir       # IIR guidance times
+    python3 chip_smoke.py --phases distill            # the PD proof
 
 Phases (any failure exits non-zero; no phase catches and carries on):
 
@@ -62,7 +63,12 @@ Phases (any failure exits non-zero; no phase catches and carries on):
                 point and every single step against the CPU plain loop,
                 its iterations beside the plain loop's, us and SM cycles
                 per iteration; it fails if ptxas gave a fit instantiation
-                a stack frame or spills).  Each shape also gets
+                a stack frame or spills); the IIR recursion (csrc/iir.cu)
+                against its plain loop bit for bit at 4 x 4096 samples with
+                cheby1 and the biquad, forward and reversed, and at 184184
+                samples within twice scipy's fp32 lfilter's error of its
+                float64 one, timed per guided evaluation and beside the
+                plain loop on an 8192-sample row.  Each shape also gets
                 its time, its bound, the plain version's time and a cuDNN
                 yardstick (a conv, or its weight gradient; bf16 for K3: no
                 PyTorch call computes an int8 conv); C8 (conv_int8) and Q8
@@ -121,8 +127,10 @@ Phases (any failure exits non-zero; no phase catches and carries on):
                 after; the second also holds act_rescale at the int8 1x1
                 shapes it ran and at RESCALE_EDGE (bf16 and fp32, timed
                 through the launcher and as device time beside
-                torch.mul), and P1 the int8 1x1 product at shapes
-                torch._int_mm does not take, bit for bit); then two
+                torch.mul), P1 the int8 1x1 product at shapes
+                torch._int_mm does not take (K not a multiple of 32
+                zero-padded), and int8 convs other than (5,3) at (d,1)
+                through the int8 im2col product, bit for bit); then two
                 quantization-aware training steps at the flagship under
                 BABE_PRECISION=int8, in the fused chain and in the JAX
                 API's int8 (finite loss and gradients, the int8 forward
@@ -152,7 +160,13 @@ Phases (any failure exits non-zero; no phase catches and carries on):
                 step, each step's launches held to the network's counts
                 (remat recompute included), params and EMA that moved,
                 then the written .ckpt loaded with BABE.load on the card
-                answering one blind request at tester.T = LOAD_CHECK_T.
+                answering one blind request at tester.T = LOAD_CHECK_T;
+                one more step through a world-size-1 NCCL mesh (the
+                data-parallel trainer's draws, all-reduce and gathers)
+                against the plain step from the same state and seed run
+                twice: the loss bit for bit, the rest within NCCL_K times
+                the plain steps' own spread (the weight gradients'
+                atomics).
      families   the diffusion families and options beyond plain EDM at
                 the flagship: first each on a 16384-sample segment at
                 flagship widths, card against CPU (fp32 to 1e-3, bf16
@@ -170,8 +184,9 @@ Phases (any failure exits non-zero; no phase catches and carries on):
                 evaluations included), PD_sample at stage 0, EDMEps'
                 unconditional Heun and DDIM runs at T = 8, the attention
                 network's step and one blind request at T = 8, one step
-                without remat, with "full" and with "save_convs" (seconds
-                and peak memory each), and one blind request with
+                without remat, with "full" and with "save_convs" (seconds,
+                peak memory and K2 forward launches each: "full" twice the
+                stages, "save_convs" once), and one blind request with
                 sigma_den_estimate = 0.01 at T = 8; each run's seconds and
                 launches logged (runs alone as --phases
                 identify,families).
@@ -198,9 +213,10 @@ Phases (any failure exits non-zero; no phase catches and carries on):
                 ``babe_tpu_torch.tools.quality_int8 --mode lsd`` (the same
                 checkpoint in bf16 and in int8 with every tiny stack on K3;
                 gate: |mean LSD delta| < 0.05 dB and K3 launched).
-  iir           (not by default) one guided evaluation of informed BWE at
-                the flagship with the firwin, cheby1 and biquad
-                degradations, and the IIR recursion alone, timed.
+     iir        one guided evaluation of informed BWE at the flagship
+                with the firwin, cheby1 and biquad degradations, timed;
+                the counters zeroed just before each and read just after
+                (each IIR evaluation launches the recursion twice).
   q8            (not by default) Q8 alone: the kernels phase's Q8 checks
                 and times, then act_quant_dyn's phase 1 alone and with its
                 barrier, both kernels with the L2 warm, and at batch 4
@@ -210,6 +226,11 @@ Phases (any failure exits non-zero; no phase catches and carries on):
                 int8 (C8 and Q8): its parts timed, then one whole stage
                 under torch.profiler (device time, busy share, launches,
                 the top kernels by name).
+  distill       (not by default) babe_tpu_torch.tools.distill_e2e at the
+                JAX tool's defaults: a teacher trained 1500 steps, a
+                student distilled 1000 steps through the train CLI; both
+                gates (PD loss ratio >= 2, tracking within 0.1
+                sigma_data^2) must pass.
   gates         (not by default) the capability tool at 3000 steps over
                 two trainings, each checkpoint through quality_int8 in the
                 fused chain and in the JAX tool's configuration (the
@@ -274,6 +295,9 @@ REPLACES = {
     "act_quant_dyn": "babe_tpu/ops/conv_kernels.py:126",
     "act_quant": "babe_tpu/ops/conv_kernels.py:137",
     "act_rescale": "babe_tpu/ops/conv_kernels.py:305",
+    # no Pallas kernel: the lax.scan of the IIR degradations (XLA on the
+    # TPU)
+    "lfilter": "babe_tpu/ops/iir.py:19",
 }
 SOURCES = {
     "conv5x3": "babe_tpu_torch/csrc/conv5x3.cu",
@@ -293,6 +317,7 @@ SOURCES = {
     "act_quant_dyn": "babe_tpu_torch/csrc/quant_int8.cu",
     "act_quant": "babe_tpu_torch/csrc/quant_int8.cu",
     "act_rescale": "babe_tpu_torch/csrc/quant_int8.cu",
+    "lfilter": "babe_tpu_torch/csrc/iir.cu",
 }
 # what each kernel's ms, plain_ms, bound_ms and library_ms sum over
 PER = {
@@ -369,6 +394,11 @@ PER = {
                    "20 launches, the L2 flushed before each); library_ms is "
                    "torch.mul(acc, scale) to fp32 through the call, "
                    "library_device_ms the same as device time",
+    "lfilter": "one row of 8192 samples with the cheby1 degradation "
+               "(order 6), forward and reversed (its input gradient), the "
+               "plain loop on the card beside it; eval_ms the kernel per "
+               "guided evaluation of an informed request (one 184184-sample "
+               "row, both directions); no one PyTorch call computes it",
 }
 # where each kernel's launch count comes from
 LAUNCHES_FROM = {
@@ -387,6 +417,7 @@ LAUNCHES_FROM = {
     "act_quant_dyn": "the JAX API's int8 request (int8modes)",
     "act_quant": "the JAX API's int8 request (int8modes)",
     "act_rescale": "the amax, all-ops int8 request (int8modes)",
+    "lfilter": "the iir phase's guided evaluations (cheby1, biquad)",
 }
 # the weight gradients are summed over up to 2.9M positions in another
 # order than the plain version's (fp32 partials added by atomics): both
@@ -732,6 +763,7 @@ def phase_kernels(results: dict):
     ok &= _k2_fp32_evidence(k2_shapes)
     _engine_digests()
     ok &= _kernel_filter_fit(agg["filter_fit"])
+    ok &= _kernel_lfilter(agg["lfilter"])
     ok &= _kernel_k4(account, results)
     ok &= _kernel_dw(account, k1_shapes, k2_shapes)
     ok &= _tiny_net_checks()
@@ -739,9 +771,10 @@ def phase_kernels(results: dict):
                  "stage_int8_operand"):
         agg[name]["library_ms"] = None
     del agg["act_rescale"]  # measured at the 1x1 shapes in int8modes
+    agg["lfilter"]["library_ms"] = None
     for name, a in agg.items():
-        if name == "filter_fit":
-            continue  # logged by _kernel_filter_fit
+        if name in ("filter_fit", "lfilter"):
+            continue  # logged by their own checks
         per = ("one training step" if name in DW_KERNELS
                else "one forward at each level shape" if name ==
                "dilated_conv" else "guided evaluation")
@@ -2537,6 +2570,109 @@ def _fit_steps(kernels, cfg, freqs, stats, trace) -> tuple[bool, str]:
                 f"it) {'ok' if ok else 'FAIL'}")
 
 
+IIR_SHORT = (4, 4096)   # rows, samples: held to the plain loop bit for bit
+IIR_TIMED = 8192        # samples of the row timed beside the plain loop
+IIR_FC = 1000.0
+
+
+def _iir_filters(fs: float) -> dict:
+    """The degradations' IIR filters at fc = IIR_FC: cheby1 (order 6,
+    ripple 0.05; the iir phase's) and the RBJ biquad (Q 0.707), as (b, a)
+    float32."""
+    from babe_tpu_torch.ops import iir
+
+    c = iir.design_biquad_lpf(IIR_FC, fs, 0.707)
+    return {"cheby1": iir.get_cheby1_ba(6, 0.05, 2 * IIR_FC / fs),
+            "biquad": (np.float32(c[:3]), np.float32(c[3:]))}
+
+
+def _kernel_lfilter(a: dict) -> bool:
+    """The IIR recursion (csrc/iir.cu) against its plain version (the loop
+    over time, on the card): at IIR_SHORT with cheby1 and the biquad,
+    forward and reversed, bit for bit; at 184184 samples (one row, the
+    informed request's) held to scipy's float64 lfilter within
+    tests/test_torch_dsp.py::_iir_close's bar, with scipy's own fp32
+    lfilter in the place of the JAX package's (twice its l2 error, plus
+    1e-7), forward and reversed; timed there, kernel and plain loop, each
+    direction once a guided evaluation."""
+    import scipy.signal
+    import torch
+
+    from babe_tpu_torch import kernels
+    from babe_tpu_torch.ops import iir
+
+    L, fs = 184184, 22050.0
+    ok = True
+    g = torch.Generator(device="cuda").manual_seed(31)
+    for ftype, (b, a_) in _iir_filters(fs).items():
+        coef = iir._normalised(a_, b, torch.float32, "cuda")
+        bn, an = coef.chunk(2)
+        x = torch.randn(IIR_SHORT, generator=g, device="cuda")
+        for rev in (False, True):
+            out = kernels.launch_lfilter(x, coef, reverse=rev)
+            ref = (iir.lfilter_ref(x.flip(-1), bn, an).flip(-1) if rev
+                   else iir.lfilter_ref(x, bn, an))
+            eq = torch.equal(out, ref)
+            ok &= eq
+            log(f"lfilter {ftype} {IIR_SHORT[0]}x{IIR_SHORT[1]} "
+                f"{'reversed' if rev else 'forward'}: bit-equal to the "
+                f"plain loop {eq}")
+        xl = torch.randn((1, L), generator=g, device="cuda")
+        xh = xl.cpu().numpy()
+        b64, a64 = (np.asarray(v, np.float64) for v in (b, a_))
+        bf, af = (np.asarray(v, np.float32) for v in (b, a_))
+        for rev in (False, True):
+            src = xh[:, ::-1] if rev else xh
+            f64 = scipy.signal.lfilter(b64, a64, src.astype(np.float64))
+            f32 = scipy.signal.lfilter(bf, af, src)
+            out = kernels.launch_lfilter(xl, coef, reverse=rev).cpu().numpy()
+            out = out[:, ::-1] if rev else out
+            err = np.linalg.norm(out - f64) / np.linalg.norm(f64)
+            bar = 2 * np.linalg.norm(f32 - f64) / np.linalg.norm(f64) + 1e-7
+            held = bool(np.isfinite(out).all() and err <= bar)
+            ok &= held
+            a["max_abs_err"] = max(a["max_abs_err"],
+                                   float(np.abs(out - f64).max()))
+            log(f"lfilter {ftype} 1x{L} {'reversed' if rev else 'forward'}"
+                f": l2 error from float64 {err:.3e} (bar {bar:.3e}, twice "
+                f"scipy's fp32 lfilter's) {'ok' if held else 'FAIL'}")
+        t_eval = sum(cuda_time(lambda r=rev: kernels.launch_lfilter(
+            xl, coef, reverse=r)) for rev in (False, True))
+        clk = _sm_clock_busy(lambda: [kernels.launch_lfilter(
+            xl, coef) for _ in range(40)])
+        sm_hz = 1e6 * (float(clk) if clk.replace(".", "").isdigit()
+                       else 1980.0)  # else the card's most
+        lat = 2 * 4 * 4 * L / sm_hz * 1e3
+        log(f"lfilter {ftype}: per guided evaluation (1x{L}, forward and "
+            f"reversed) {t_eval:.4f} ms, {t_eval * 1e-3 * sm_hz / (2 * L):.1f}"
+            f" SM cycles a sample at {sm_hz / 1e6:.0f} MHz; the recursion's "
+            f"latency (4 dependent fp32 ops of 4 cycles a sample) "
+            f"{lat:.4f} ms")
+        if ftype != "cheby1":
+            continue
+        a["eval_ms"] = t_eval
+        # kernel, plain loop and bound on one row of IIR_TIMED samples: the
+        # plain loop takes some 0.2 ms a sample on the card
+        xt = xl[:, :IIR_TIMED]
+        t_k = sum(cuda_time(lambda r=rev: kernels.launch_lfilter(
+            xt, coef, reverse=r)) for rev in (False, True))
+        t_p = sum(cuda_time(fn, reps=1, warm=0) for fn in (
+            lambda: iir.lfilter_ref(xt, bn, an),
+            lambda: iir.lfilter_ref(xt.flip(-1), bn, an).flip(-1)))
+        n = bn.numel()
+        ops = 2 * IIR_TIMED * (2 + 4 * (n - 1))  # both directions
+        nbytes = 2 * 8 * IIR_TIMED
+        b_ms, by = bound_ms(ops, nbytes, torch.float32)
+        a.update(ms=t_k, plain_ms=t_p, bound_ms=b_ms, shapes=1,
+                 ops_ms=bound_ms(ops, 0.0, torch.float32)[0],
+                 bytes_ms=1e3 * nbytes / HBM_BPS, flops=ops,
+                 bytes=nbytes)
+        log(f"lfilter: per 1x{IIR_TIMED} row forward and reversed (cheby1) "
+            f"ms={t_k:.4f} bound_ms={b_ms:.6f}({by}) plain_ms={t_p:.1f} "
+            f"library=none (no one call)")
+    return ok
+
+
 def _kernel_filter_fit(a: dict) -> bool:
     """The filter-fit kernel against its plain version (the eager autograd
     loop) on the CPU, for every case of fit_sensitivity.FIT_CASES (the
@@ -3378,15 +3514,18 @@ def _rescale_checks(shapes, results) -> None:
 
 def _int_mm_route_check() -> None:
     """The int8 1x1 product at shapes ``torch._int_mm`` does not take (M <=
-    16; N not a multiple of 8), which go to P1's GEMM: int32 equal to the
-    plain version (float64, exact) bit for bit, P1 launched once each."""
+    16; N not a multiple of 8; K not a multiple of 32, zero-padded), which
+    go to P1's GEMM: int32 equal to the plain version (float64, exact) bit
+    for bit, P1 launched once each; then int8 convs off C8's (5,3) at
+    dilation (d,1) (the int8 im2col product and the rescale) against their
+    plain versions, accumulator and output bit for bit."""
     import torch
 
     from babe_tpu_torch import kernels
     from babe_tpu_torch.ops import conv_kernels as ck
 
     g = torch.Generator().manual_seed(78)
-    for M, K, N in ((8, 128, 96), (4096, 96, 36)):
+    for M, K, N in ((8, 128, 96), (4096, 96, 36), (8, 100, 36)):
         a = torch.randint(-127, 128, (M, K), generator=g, dtype=torch.int8)
         bt = torch.randint(-127, 128, (N, K), generator=g, dtype=torch.int8)
         n0 = kernels.LAUNCHES["probe_gemm"]
@@ -3399,6 +3538,27 @@ def _int_mm_route_check() -> None:
             raise RuntimeError(f"the int8 1x1 product at {(M, K, N)} did "
                                f"not run P1 or differs from its plain "
                                f"version")
+    for (B, F, T, C, N), ks, dil in (((2, 64, 40, 96, 96), (3, 3), (2, 2)),
+                                     ((1, 32, 24, 20, 36), (1, 1), (1, 1)),
+                                     ((1, 64, 20, 128, 128), (5, 3), (2, 2))):
+        x = torch.randn((B, F, T, C), generator=g).to(torch.bfloat16)
+        w = 0.05 * torch.randn((*ks, C, N), generator=g)
+        qw = ck.QuantKernel.of(w.to(torch.bfloat16))
+        qx, sx = ck.quant_act_per_item(x)
+        acc = ck.conv_int8_acc(qx.cuda(), qw.q.cuda(), dil).cpu()
+        ref = ck.conv_int8_acc_ref(qx, qw.q, dil)
+        n0 = dict(kernels.LAUNCHES)
+        out = ck.conv_int8(x.cuda(), w.cuda(), dil).cpu()
+        ran = [k for k in kernels.LAUNCHES if kernels.LAUNCHES[k] != n0[k]]
+        out_ref = ck.conv_int8(x, w, dil)
+        ok = (torch.equal(acc, ref) and torch.equal(out, out_ref)
+              and "conv_int8" not in ran and "act_rescale" in ran)
+        log(f"int8 conv {ks} at dilation {dil}, (B, F, T, C, N) = "
+            f"{(B, F, T, C, N)}: the im2col product ({'+'.join(ran)}), "
+            f"accumulator and output bit-equal to the plain version {ok}")
+        if not ok:
+            raise RuntimeError(f"the int8 conv {ks} at {dil} differs from "
+                               f"its plain version or ran C8")
 
 
 def phase_int8modes(results: dict, T: int = 15):
@@ -3937,6 +4097,7 @@ def phase_train(results: dict, steps: int = 5, untimed: int = 2):
             f"kernel launches; top kernels by device time:")
         for e in sorted(kern, key=_dev_us, reverse=True)[:12]:
             log(f"  {_dev_us(e) / 1e3:10.3f} ms  x{e.count:6d}  {e.key[:90]}")
+        _nccl_step(tr, snap["x"])
         log(f"train: launches {counts}, per step expected {want}")
         bad = [i for i, r in enumerate(rec) if r["launches"] != want]
         if len(rec) != steps or bad or any(
@@ -3987,6 +4148,94 @@ def phase_train(results: dict, steps: int = 5, untimed: int = 2):
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+NCCL_K = 4.0  # the NCCL step's bar, in plain steps' run-to-run spreads
+
+
+def _nccl_step(tr, x) -> None:
+    """One flagship step (batch 4, remat, bf16) of the train phase's
+    trainer through a world-size-1 NCCL mesh (``parallel/mesh.py``: the
+    global batch's draws, the rank's rows, the loss scaled by its share,
+    the fp32 all-reduce of the gradients and the loss, the gathered
+    statistics) against the plain step from the same state and seed, run
+    twice: the loss bit for bit, and the gradients' norm, Adam's moments,
+    the params and the EMA within NCCL_K times the two plain steps' own
+    spread (the weight gradients' atomics sum in another order each run),
+    or NCCL_K float32 roundings of the largest value where that spread is
+    smaller (one pair of plain steps may happen to agree).  The trainer's
+    state is restored after each step."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from babe_tpu_torch.parallel import mesh as M
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        state = {k: {n: v.detach().clone() for n, v in d.items()}
+                 for k, d in (("params", tr.params), ("ema", tr.ema),
+                              ("mu", tr.mu), ("nu", tr.nu))}
+        counts = (tr.count, tr.sched_count, tr.it)
+        gen = tr.gen.get_state()
+        plain, outs = tr.mesh, {}
+        joined = M.make_mesh(device=tr.device)
+        if not (joined.joined and joined.size == 1) or plain.joined:
+            raise RuntimeError(f"train nccl: meshes {plain}, {joined}")
+        for label, mesh in (("plain", plain), ("plain again", plain),
+                            ("nccl", joined)):
+            tr.mesh = mesh
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = tr._step(x)
+            torch.cuda.synchronize()
+            outs[label] = {
+                "s": time.perf_counter() - t0,
+                "loss": m["loss"].clone(), "grad_norm": m["grad_norm"].clone(),
+                **{k: {n: v.detach().clone()
+                       for n, v in getattr(tr, k).items()}
+                   for k in state}}
+            with torch.no_grad():
+                for k, d in state.items():
+                    for n, v in d.items():
+                        getattr(tr, k)[n].copy_(v)
+            tr.count, tr.sched_count, tr.it = counts
+            tr.gen.set_state(gen)
+        tr.mesh = plain
+
+        def parts(u, k):
+            return [u[k]] if torch.is_tensor(u[k]) else list(u[k].values())
+
+        def diff(u, v, k):
+            return max(float((p.float() - q.float()).abs().max())
+                       for p, q in zip(parts(u, k), parts(v, k)))
+
+        a, a2, b = outs["plain"], outs["plain again"], outs["nccl"]
+        keys = ("grad_norm", *state)
+        spread = {k: max(diff(a, a2, k), 2.0**-23 * max(
+            float(p.float().abs().max()) for p in parts(a, k)))
+            for k in keys}
+        got = {k: diff(b, a, k) for k in keys}
+        ok = torch.equal(a["loss"], b["loss"]) and all(
+            got[k] <= NCCL_K * spread[k] for k in keys)
+        log(f"train nccl: one flagship step through a world-size-1 NCCL "
+            f"mesh ({b['s']:.3f} s) against the plain step ({a['s']:.3f}, "
+            f"{a2['s']:.3f} s), loss {float(b['loss']):.6f} (bit-equal "
+            f"{torch.equal(a['loss'], b['loss'])}); largest differences "
+            f"from the plain step "
+            + ", ".join(f"{k} {got[k]:.3e} (plain vs plain, or one "
+                        f"rounding, {spread[k]:.3e})"
+                        for k in keys) + f": {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError("train nccl: the NCCL step differs from the "
+                               "plain step beyond its own spread")
+    finally:
+        dist.destroy_process_group()
 
 
 # the families phase: its checks run at flagship widths on this short
@@ -4483,10 +4732,13 @@ def phase_families(results: dict):
             log(f"families remat {label}: {sec:.3f} s, peak memory "
                 f"{peak:.2f} GiB")
         nst = steps["no remat"]["fused_stage"]
-        if not (steps["full"]["fused_stage"] == steps["save_convs"][
-                "fused_stage"] == 2 * nst):
-            raise RuntimeError(f"families remat: K2 launches {steps}: the "
-                               f"remat steps must recompute every stage")
+        if not (steps["full"]["fused_stage"] == 2 * nst
+                and steps["save_convs"]["fused_stage"] == nst):
+            raise RuntimeError(f"families remat: K2 launches {steps}: "
+                               f"\"full\" must recompute every stage, "
+                               f"\"save_convs\" none")
+        log("families remat, K2 forward launches a step: "
+            + ", ".join(f"{k} {v['fused_stage']}" for k, v in steps.items()))
         out["remat"] = steps
         del st, sm
         torch.cuda.empty_cache()
@@ -4573,23 +4825,22 @@ def phase_iir(results: dict, t: float = 0.5):
     """One guided evaluation of informed BWE at the flagship (seed-0
     weights, bf16, 184184 samples, the blind_bwe tester's guidance) with
     the firwin degradation (order 500) and with each IIR degradation
-    (cheby1 of order 6, ripple 0.05; the biquad, Q 0.707; fc 1000 Hz), and
-    ``iir.lfilter`` alone on the segment without and with its backward.
-    The IIR recursion is a Python loop over time, some 7 small launches a
-    sample each way, so these seconds are what the cheby1 and biquad
-    modes cost on the card per evaluation.  Reported, not gated; not run
-    by default."""
+    (cheby1 of order 6, ripple 0.05; the biquad, Q 0.707; fc 1000 Hz), each
+    timed after a warm-up evaluation.  The launch counters are zeroed just
+    before the IIR evaluations and read just after: each must launch the
+    recursion kernel (csrc/iir.cu) twice, forward and its input gradient,
+    and its output be finite."""
     import torch
 
+    from babe_tpu_torch import kernels
     from babe_tpu_torch.config import default_config
     from babe_tpu_torch.diffusion.edm import EDM
     from babe_tpu_torch.models.cqtdiff import CQTDiffPlus
-    from babe_tpu_torch.ops import iir
     from babe_tpu_torch.sampling import degradations as D
     from babe_tpu_torch.sampling.heun import Sampler, SamplerConfig
 
     base = ["exp=maestro22k_8s", "network=cqtdiff+", "tester=blind_bwe",
-            "tester.bandwidth_extension.filter.fc=1000"]
+            f"tester.bandwidth_extension.filter.fc={IIR_FC}"]
     args = default_config(base)
     fs, L = float(args.exp.sample_rate), int(args.exp.audio_len)
     model = CQTDiffPlus.from_config(args).init(seed=0, device="cpu")
@@ -4602,17 +4853,7 @@ def phase_iir(results: dict, t: float = 0.5):
                       device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(51)
     x = x0 + t * torch.randn(x0.shape, generator=gen, device="cuda")
-    secs = {}
-
-    def timed(label, fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        secs[label] = time.perf_counter() - t0
-        if not torch.isfinite(out).all():
-            raise RuntimeError(f"iir: {label} is not finite")
-
+    secs, counts = {}, {}
     for ftype, extra in (("firwin", ["tester.bandwidth_extension.filter."
                                      "order=500"]),
                          ("cheby1", ["tester.bandwidth_extension.filter."
@@ -4624,21 +4865,27 @@ def phase_iir(results: dict, t: float = 0.5):
         deg = D.degradation_from_filter(filt, ftype)
         with torch.no_grad():
             y = deg(x0)
-        if ftype == "firwin":  # a warm-up evaluation first
-            s._score(x, t, y, deg, gen)
-        timed(f"guided evaluation, {ftype}",
-              lambda: s._score(x, t, y, deg, gen))
-        if ftype == "cheby1":
-            b_, a_ = filt
-            with torch.no_grad():
-                timed("lfilter (cheby1), forward",
-                      lambda: iir.lfilter(x, a_, b_))
-            xg = x.detach().requires_grad_(True)
-            timed("lfilter (cheby1), forward and backward",
-                  lambda: torch.autograd.grad(
-                      iir.lfilter(xg, a_, b_).square().sum(), xg)[0])
-    log(f"iir: {L} samples, bf16 flagship, seed-0 weights, t = {t}: "
-        + ", ".join(f"{k} {v:.3f} s" for k, v in secs.items()))
+        s._score(x, t, y, deg, gen)  # a warm-up evaluation
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = s._score(x, t, y, deg, gen)
+        torch.cuda.synchronize()
+        secs[ftype] = time.perf_counter() - t0
+        counts[ftype] = kernels.LAUNCHES["lfilter"]
+        if not torch.isfinite(out).all():
+            raise RuntimeError(f"iir: the {ftype} evaluation is not finite")
+        want = 0 if ftype == "firwin" else 2
+        if counts[ftype] != want:
+            raise RuntimeError(f"iir: the {ftype} evaluation launched the "
+                               f"recursion {counts[ftype]} times, not "
+                               f"{want}")
+    log(f"iir: {L} samples, bf16 flagship, seed-0 weights, t = {t}, one "
+        f"guided evaluation: "
+        + ", ".join(f"{k} {v:.3f} s ({counts[k]} lfilter launches)"
+                    for k, v in secs.items()))
+    results.setdefault("launches", {})["lfilter"] = (counts["cheby1"]
+                                                     + counts["biquad"])
     results["iir"] = secs
 
 
@@ -4900,6 +5147,33 @@ def phase_capability(results: dict):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def phase_distill(results: dict):
+    """(Not by default.) The end-to-end distillation proof on the card,
+    as its own process: ``babe_tpu_torch.tools.distill_e2e`` at the JAX
+    tool's defaults (a tiny teacher trained 1500 iterations on seeded
+    sawtooths, a student distilled from it 1000 iterations through
+    ``python -m babe_tpu_torch.train diff_params=edm_PD``, boundaries T =
+    8), with both of its gates: the PD loss falls at least 2x, and the
+    student at T/2 steps tracks the teacher at T within 0.1 sigma_data^2.
+    A gate that fails fails the phase."""
+    import shutil
+
+    tmp = tempfile.mkdtemp(prefix="babe_pd_")
+    try:
+        out = _tool_json("babe_tpu_torch.tools.distill_e2e",
+                         ["--workdir", tmp, "--device", "cuda"],
+                         timeout=1800)
+        log(f"distill: {json.dumps(out)}")
+        results["distill"] = out
+        if not (out["loss_gate"] and out["tracking_gate"]):
+            raise RuntimeError(f"distill: a gate failed (loss ratio "
+                               f"{out['pd_loss_ratio']}, tracking "
+                               f"{out['mse_student_halfsteps_vs_full']} "
+                               f"against {out['tracking_budget']})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def phase_gates(results: dict, its: int = 3000, trainings: int = 2):
     """(Not by default.) The int8 gate beyond the tools' own 1500 steps:
     ``trainings`` runs of ``babe_tpu_torch.tools.capability_e2e --its
@@ -5040,14 +5314,14 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--phases",
                    default="identify,kernels,probe,check,requests,"
-                           "int8modes,pt,long,train,families,quality,cli,"
-                           "capability",
+                           "int8modes,pt,long,train,families,iir,quality,"
+                           "cli,capability",
                    help="comma list; 'profile' (not run by default) breaks "
                         "one guided evaluation down, 'q8' (nor this) checks "
-                        "and times Q8 alone with its parts, 'iir' (nor "
-                        "this) times "
-                        "one with each IIR degradation, 'gates' (nor this) "
-                        "runs the int8 gate at 3000 training steps")
+                        "and times Q8 alone with its parts, 'gates' (nor "
+                        "this) runs the int8 gate at 3000 training steps, "
+                        "'distill' (nor this) the end-to-end distillation "
+                        "proof")
     a = p.parse_args(argv)
     try:
         import torch
@@ -5084,10 +5358,10 @@ def main(argv=None) -> int:
                      ("requests", phase_requests),
                      ("int8modes", phase_int8modes), ("pt", phase_pt),
                      ("long", phase_long), ("train", phase_train),
-                     ("families", phase_families),
+                     ("families", phase_families), ("iir", phase_iir),
                      ("quality", phase_quality), ("cli", phase_cli),
-                     ("capability", phase_capability), ("iir", phase_iir),
-                     ("gates", phase_gates),
+                     ("capability", phase_capability),
+                     ("gates", phase_gates), ("distill", phase_distill),
                      ("profile", lambda _: phase_profile()),
                      ("q8", phase_q8)):
         if name in phases:
@@ -5107,7 +5381,7 @@ def main(argv=None) -> int:
                          >= r.get("bytes_ms", 0.0) else "bytes"),
             "library_ms": r.get("library_ms"),
             **{k: r[k] for k in ("eager_ms", "device_ms",
-                                 "library_device_ms") if k in r},
+                                 "library_device_ms", "eval_ms") if k in r},
             "check": "ok" if r else "not run",
             "launches_from": LAUNCHES_FROM.get(name, (
                 "the bf16 requests" if "requests" in phases

@@ -338,7 +338,8 @@ def test_save_convs_gradients_and_no_second_conv_forward(monkeypatch):
     """One training loss's gradients under remat_policy=save_convs equal
     those of "full" and of no remat, and the recompute runs no Conv2d's
     conv again (each conv's computation counted; the blocks' Conv2d calls
-    counted by forward hooks)."""
+    counted by forward hooks) and no fused stage's forward again (each
+    stage's forward counted: once a stage in a step, not twice)."""
     from babe_tpu_torch.models.blocks import Conv2d, ResnetBlock
 
     ov = TINY + ["network.attention_layers=[0,1,1,1]",
@@ -366,6 +367,15 @@ def test_save_convs_gradients_and_no_second_conv_forward(monkeypatch):
         return orig(run)
 
     monkeypatch.setattr(ck, "_taped", counting)
+    stage_fwd, orig_parts = [0], ck._dil_stage_parts
+
+    def counting_parts(*a):
+        stage_fwd[0] += 1
+        return orig_parts(*a)
+
+    monkeypatch.setattr(ck, "_dil_stage_parts", counting_parts)
+    n_stages = sum(blk.num_dils for blk in m.net.modules()
+                   if isinstance(blk, ResnetBlock) and blk.fused)
     in_blocks = [c for blk in m.net.modules() if isinstance(blk, ResnetBlock)
                  for c in blk.modules() if isinstance(c, Conv2d)]
     for c in in_blocks:
@@ -378,17 +388,17 @@ def test_save_convs_gradients_and_no_second_conv_forward(monkeypatch):
                           (True, "save_convs")):
         m.net.remat, m.net.remat_policy = remat, policy
         m.net.zero_grad(set_to_none=True)
-        computed[0] = called[0] = 0
+        computed[0] = called[0] = stage_fwd[0] = 0
         e2, _ = edm.loss_fn(None, m.apply, x, True, sigma=sigma, noise=noise)
         e2.mean().backward()
         grads[remat, policy] = {k: q.grad.clone()
                                 for k, q in m.net.named_parameters()}
-        counts[remat, policy] = (computed[0], called[0])
+        counts[remat, policy] = (computed[0], called[0], stage_fwd[0])
     # the fused (5,3) stacks call no Conv2d (their stages read the
     # kernels); the other Conv2d of the blocks run once a forward
     n = counts[False, "full"][1]
     assert 0 < n < len(in_blocks) and n_outside == 3
-    assert counts[False, "full"] == (n + n_outside, n)
+    assert counts[False, "full"] == (n + n_outside, n, n_stages)
     # the recompute calls the blocks' Conv2d again (each block's recompute
     # stops once it has what its backward needs, so a block's last Conv2d
     # may not return to its hook); under "full" each computes its conv
@@ -396,6 +406,11 @@ def test_save_convs_gradients_and_no_second_conv_forward(monkeypatch):
     assert counts[True, "full"][0] == 2 * n + n_outside
     assert counts[True, "save_convs"][0] == n + n_outside
     assert counts[True, "save_convs"][1] > n
+    # the fused stages: "full" runs each stage's forward again in the
+    # recompute, "save_convs" forms y from the kept conv output
+    assert n_stages > 0
+    assert counts[True, "full"][2] == 2 * n_stages
+    assert counts[True, "save_convs"][2] == n_stages
     ref = grads[False, "full"]
     for key in ((True, "full"), (True, "save_convs")):
         for k, g in grads[key].items():

@@ -23,6 +23,7 @@ import torch
 from babe_tpu.ops import conv_kernels as jck
 from babe_tpu_torch import kernels
 from babe_tpu_torch.ops import conv_kernels as tck
+from babe_tpu_torch.ops import iir as tiir
 from babe_tpu_torch.sampling.blind import BlindConfig, BlindSampler
 from babe_tpu_torch.sampling.heun import SamplerConfig
 
@@ -252,6 +253,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing(rng):
                       device="cpu")
     X = torch.randn((1, 33, 4), dtype=torch.complex64)
     s_.fit_params(X, X, s_.blind.initial_params())
+    xi = _t(x).reshape(-1, x.shape[-1])[:2].requires_grad_(True)
+    torch.autograd.grad(tiir.lfilter(xi, [1.0, -0.5], [0.5, 0.0]).sum(), xi)
     assert set(kernels.LAUNCHES) == {"conv5x3", "fused_stage",
                                      "stage_fwd_operand",
                                      "fused_stage_bwd", "filter_fit",
@@ -261,7 +264,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing(rng):
                                      "conv_dw", "stage_dw_operands",
                                      "fused_stage_dw", "conv_int8",
                                      "act_quant_dyn", "act_quant",
-                                     "act_rescale"}
+                                     "act_rescale", "lfilter"}
     assert all(n == 0 for n in kernels.LAUNCHES.values())
 
 
