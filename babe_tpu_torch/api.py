@@ -47,7 +47,7 @@ import torch
 from babe_tpu_torch.config import default_config, make_config
 from babe_tpu_torch.models.cqtdiff import PRECISIONS
 from babe_tpu_torch.ops.resample import resample
-from babe_tpu_torch.testers.tester import Tester, read_checkpoint
+from babe_tpu_torch.testers.tester import Tester, checkpoint_args
 from babe_tpu_torch.utils.device import check_device
 
 
@@ -129,8 +129,10 @@ class BABE:
     def load(cls, checkpoint: str, overrides: Sequence[str] = (),
              denoiser_checkpoint=None, precision: str | None = None,
              device="cuda") -> "BABE":
-        """Build the model from a ``.ckpt`` pickle (its saved network, exp
-        and diffusion config are adopted), or from a reference ``.pt``
+        """Build the model from a ``.ckpt`` pickle or an orbax checkpoint
+        directory (its saved network, exp and diffusion config are adopted:
+        a directory's from its ``train_args.json``, none without one), or
+        from a reference ``.pt``
         torch checkpoint (built at the published flagship config with the
         checkpoint-compatible CQT frame, ``network=cqtdiff+_ckpt``), and
         load the weights.  ``overrides`` are dotted config assignments
@@ -156,8 +158,7 @@ class BABE:
                              f"got {precision!r}")
         check_device(device)
         base: list[str] = []
-        saved = (None if checkpoint.endswith(".pt")
-                 else read_checkpoint(checkpoint).get("args"))
+        saved = checkpoint_args(checkpoint)
         if saved:
             net = dict(saved.get("network") or {})
             net.pop("callable", None)

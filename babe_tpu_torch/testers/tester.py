@@ -64,6 +64,8 @@ from babe_tpu_torch.sampling.heun import SamplerConfig
 from babe_tpu_torch.utils import logging as ulog
 from babe_tpu_torch.utils.logging import MetricsLogger, write_audio_file
 from babe_tpu_torch.utils.metrics import lsd, lsd_high_band
+from babe_tpu_torch.utils.orbax_dir import (is_orbax, orbax_top_keys,
+                                            read_orbax, read_sidecar_args)
 from babe_tpu_torch.utils.torch_ckpt import (convert_state_dict,
                                              extract_network_state,
                                              fill_variables,
@@ -72,8 +74,6 @@ from babe_tpu_torch.utils.weights import _flatten, load_flax, to_flax
 
 # samples dropped from the end of every autoregressive chunk's prediction
 AR_DISCARD_END = 200
-
-ORBAX_EXT = ".orbax"
 
 
 class _Record(tuple):
@@ -104,16 +104,22 @@ class _WeightsUnpickler(pickle.Unpickler):
         return type(name, (_Record,), {"qualname": f"{module}.{name}"})
 
 
-def read_checkpoint(path: str) -> dict:
-    """The payload dict of a ``.ckpt`` pickle written by either package, or
-    the unpickled dict of a reference ``.pt`` torch checkpoint."""
+def read_checkpoint(path: str, top=None) -> dict:
+    """The payload dict of a ``.ckpt`` pickle written by either package, of
+    an orbax checkpoint directory (``utils/orbax_dir.py``: only the
+    top-level entries ``top`` when given, and ``args`` from its sidecar
+    when it has one), or the unpickled dict of a reference ``.pt`` torch
+    checkpoint."""
     if path.endswith(".pt"):
         if not os.path.exists(path):
             raise FileNotFoundError(f"checkpoint not found: {path!r}")
         return read_torch_checkpoint(path)
-    if path.rstrip("/").endswith(ORBAX_EXT) or os.path.isdir(path):
-        raise NotImplementedError(
-            "loading orbax checkpoint directories is not ported yet")
+    if is_orbax(path):
+        payload = read_orbax(path, top=top)
+        args = read_sidecar_args(path)
+        if args is not None:
+            payload["args"] = args
+        return payload
     if not os.path.exists(path):
         raise FileNotFoundError(f"checkpoint not found: {path!r}")
     with open(path, "rb") as f:
@@ -127,6 +133,17 @@ def read_checkpoint(path: str) -> dict:
         raise ValueError(f"checkpoint {path!r} does not hold a state dict "
                          f"(got {type(payload).__name__})")
     return payload
+
+
+def checkpoint_args(path: str):
+    """The training args a checkpoint carries, or None: a ``.ckpt``'s
+    ``args``, an orbax directory's sidecar (not its arrays), none for a
+    ``.pt`` (the JAX package's ``api._peek_saved_args``)."""
+    if is_orbax(path):
+        return read_sidecar_args(path)
+    if path.endswith(".pt"):
+        return None
+    return read_checkpoint(path).get("args")
 
 
 # the modes that spread their items over the ranks of a mesh
@@ -230,11 +247,15 @@ class Tester:
                 os.path.splitext(name)[0])
 
     def load_checkpoint(self, path: str):
-        """Load a ``.ckpt`` pickle (the EMA weights when present) or a
-        reference ``.pt`` torch checkpoint."""
+        """Load a ``.ckpt`` pickle or an orbax checkpoint directory (the EMA
+        weights when present) or a reference ``.pt`` torch checkpoint."""
         if path.endswith(".pt"):
             return self._load_torch_checkpoint(path)
-        payload = read_checkpoint(path)
+        top = None
+        if is_orbax(path):  # decode only what serving reads
+            keys = orbax_top_keys(path)
+            top = ("ema" if "ema" in keys else "params", "buffers", "it")
+        payload = read_checkpoint(path, top=top)
         src = payload.get("ema", payload.get("params"))
         if src is None:
             raise ValueError(f"checkpoint {path!r} holds no 'ema' or "

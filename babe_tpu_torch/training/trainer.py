@@ -30,9 +30,13 @@ convs': g against the dequantized int8 input).
 
 Random draws (the training sigmas and noise) come from one
 ``torch.Generator`` on the training device, seeded from ``exp.seed``; the
-weights from the model's seeded init.  Checkpoints are the JAX trainer's
-pickles: params, buffers, EMA and Adam's state in the JAX layout
-(``utils/weights.py``), readable by both packages' loaders.
+weights from the model's seeded init.  Checkpoints are the JAX trainer's:
+params, buffers, EMA and Adam's state in the JAX layout
+(``utils/weights.py``), readable by both packages' loaders, as a pickle
+(``exp.ckpt_backend=pickle``, ``<exp_name>-<it>.ckpt``) or as an orbax
+checkpoint directory (``orbax``, ``<exp_name>-<it>.orbax/``, written by
+``utils/orbax_dir.py`` without orbax; the JAX trainer restores it).
+Resuming takes the latest of either in ``model_dir``.
 
 With a ``teacher`` (a frozen network of the same config, as
 ``babe_tpu_torch.train`` loads it from ``diff_params.PD.teacher_checkpoint``)
@@ -56,9 +60,6 @@ Adam and the EMA run identically on every rank, from weights broadcast
 from rank 0.  So a step does not depend on how the batch is split, as in
 JAX, where sharding moves no draw.  Only rank 0 writes checkpoints, logs
 and demos.
-
-Not ported: the orbax checkpoint backend (``exp.ckpt_backend`` other than
-pickle raises ``NotImplementedError`` naming ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -68,6 +69,7 @@ import math
 import os
 import pickle
 import re
+import shutil
 import time
 import traceback
 
@@ -90,19 +92,17 @@ from babe_tpu_torch.utils.logging import (
     plot_loss_by_sigma,
     plot_spectrogram,
 )
+from babe_tpu_torch.utils.orbax_dir import ORBAX_EXT, write_orbax
 from babe_tpu_torch.utils.profiling import ScheduledProfiler
 from babe_tpu_torch.utils.weights import (
     adam_state_from_flax,
     adam_state_to_flax,
+    adam_state_to_orbax,
     from_flax,
     load_flax,
     to_flax,
     to_tree,
 )
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet (see ROADMAP.md)")
 
 
 class Trainer:
@@ -116,8 +116,11 @@ class Trainer:
         cnoise)``) for progressive distillation; it requires EDMPD diff
         params.  ``mesh``: the processes the batch is split over (this
         process alone by default)."""
-        if str(args.exp.get("ckpt_backend", "pickle")).lower() != "pickle":
-            raise _not_ported("the orbax checkpoint backend")
+        backend = str(args.exp.get("ckpt_backend", "pickle")).lower()
+        if backend not in ("pickle", "orbax"):
+            raise ValueError(
+                f"exp.ckpt_backend={backend!r}: must be 'pickle' or 'orbax'")
+        self.ckpt_backend = backend
         if teacher is not None and not hasattr(edm, "loss_fn_PD"):
             raise ValueError("a PD teacher requires EDMPD diff params "
                              "(diff_params=edm_PD)")
@@ -180,47 +183,61 @@ class Trainer:
     # ----------------------------------------------------------- checkpoints
 
     def _ckpt_path(self, it: int) -> str:
+        ext = ".ckpt" if self.ckpt_backend == "pickle" else ORBAX_EXT
         return os.path.join(str(self.args.model_dir),
-                            f"{self.args.exp.exp_name}-{it}.ckpt")
+                            f"{self.args.exp.exp_name}-{it}{ext}")
 
     def _state_payload(self) -> dict:
         params, buffers = to_flax(self.net)
+        to_opt = (adam_state_to_orbax if self.ckpt_backend == "orbax"
+                  else adam_state_to_flax)
         return {
             "it": int(self.it), "params": params, "buffers": buffers,
-            "opt_state": adam_state_to_flax(
-                self.count, self.mu, self.nu, self.sched_count,
-                clip=self.max_norm is not None),
+            "opt_state": to_opt(self.count, self.mu, self.nu,
+                                self.sched_count,
+                                clip=self.max_norm is not None),
             "ema": to_tree(self.ema),
         }
 
     def save_checkpoint(self) -> str:
-        """``<model_dir>/<exp_name>-<it>.ckpt``: it, params, buffers,
-        opt_state, ema and args, as the JAX trainer writes it (rank 0
-        writes; every rank returns the path)."""
+        """``<model_dir>/<exp_name>-<it>.ckpt`` (or ``.orbax/``): it,
+        params, buffers, opt_state, ema and args, as the JAX trainer writes
+        them (rank 0 writes; every rank returns the path)."""
         path = self._ckpt_path(self.it)
         if not self.mesh.is_main:
             return path
         os.makedirs(str(self.args.model_dir), exist_ok=True)
-        with open(path, "wb") as f:
-            pickle.dump(dict(self._state_payload(), args=self.args.to_dict()),
-                        f)
+        if self.ckpt_backend == "orbax":
+            path = write_orbax(path, self._state_payload(),
+                               self.args.to_dict())
+        else:
+            with open(path, "wb") as f:
+                pickle.dump(dict(self._state_payload(),
+                                 args=self.args.to_dict()), f)
         if bool(self.args.get_path("logging.remove_last_checkpoint", False)):
             prev = getattr(self, "_latest_ckpt", None)
             if prev and prev != path and os.path.exists(prev):
-                os.remove(prev)
+                if os.path.isdir(prev):
+                    shutil.rmtree(prev)
+                else:
+                    os.remove(prev)
         self._latest_ckpt = path
         return path
 
     def resume_from_checkpoint(self, path: str | None = None) -> bool:
-        """Resume from ``path`` or from the latest ``<exp_name>-<it>.ckpt``
-        in model_dir (written by either package): params, buffers, EMA,
-        Adam's moments and counts, and ``it``."""
+        """Resume from ``path`` or from the latest
+        ``<exp_name>-<it>.ckpt`` or ``.orbax`` in model_dir (written by
+        either package; a name without an iteration, such as a copy named
+        ``-best``, is skipped): params, buffers, EMA, Adam's moments and
+        counts, and ``it``."""
         if path is None:
             name = str(self.args.exp.exp_name)
-            rx = re.compile(rf"{re.escape(name)}-(\d+)\.ckpt$")
-            found = [(int(m.group(1)), p) for p in glob.glob(os.path.join(
-                str(self.args.model_dir), f"{name}-*.ckpt"))
-                for m in [rx.search(p)] if m]
+            rx = re.compile(rf"{re.escape(name)}-(\d+)\.(ckpt|orbax)$")
+            base = os.path.join(str(self.args.model_dir), f"{name}-*")
+            found = [(int(m.group(1)), p)
+                     for p in glob.glob(base + ".ckpt")
+                     + glob.glob(base + ORBAX_EXT)
+                     for m in [rx.search(p)] if m]
             if not found:
                 return False
             path = max(found)[1]

@@ -1,7 +1,8 @@
 """Weight bridge between the JAX package's variable tree and the port.
 
 The optimizer state of a training checkpoint crosses the same way
-(``adam_state_to_flax`` / ``adam_state_from_flax``): Adam's first and second
+(``adam_state_to_flax`` / ``adam_state_from_flax``, and
+``adam_state_to_orbax`` for orbax directories): Adam's first and second
 moments are trees of the params' layout, inside optax's chain state.
 
 The JAX ``CQTDiffPlus.init`` returns ``{'params': tree, 'buffers': tree}``
@@ -137,10 +138,30 @@ def adam_state_to_flax(count: int, mu, nu, sched_count: int,
     return ((), chain) if clip else (chain,)
 
 
+def adam_state_to_orbax(count: int, mu, nu, sched_count: int,
+                        clip: bool) -> list:
+    """Adam's state in the tree that orbax stores for the JAX trainer's
+    optax chain: each named tuple a dict of its fields
+    (``ScaleByAdamState``'s count, mu, nu; ``ScaleByScheduleState``'s
+    count), the clip's ``EmptyState`` None, the chains lists:
+    ``[None, [{count, mu, nu}, {count}]]`` with the clip,
+    ``[[{count, mu, nu}, {count}]]`` without."""
+    chain = [{"count": np.asarray(count, np.int32), "mu": to_tree(mu),
+              "nu": to_tree(nu)},
+             {"count": np.asarray(sched_count, np.int32)}]
+    return [None, chain] if clip else [chain]
+
+
 def adam_state_from_flax(opt_state):
     """(count, mu, nu, sched_count) from either package's checkpoint (the
     chain's last entry holds Adam's state and the schedule's count; optax's
-    named tuples arrive as the tester's field-keeping stand-ins); mu and nu
-    as flat ``{dotted name: fp32 tensor}``."""
-    (count, mu, nu), sched = opt_state[-1]
-    return int(count), from_flax(mu), from_flax(nu), int(sched[0])
+    named tuples arrive as the tester's field-keeping stand-ins from a
+    pickle, as dicts of their fields from an orbax directory); mu and nu as
+    flat ``{dotted name: fp32 tensor}``."""
+    adam, sched = opt_state[-1]
+    if isinstance(adam, dict):
+        count, mu, nu = adam["count"], adam["mu"], adam["nu"]
+    else:
+        count, mu, nu = adam
+    sched = sched["count"] if isinstance(sched, dict) else sched[0]
+    return int(count), from_flax(mu), from_flax(nu), int(sched)

@@ -9,10 +9,9 @@
 Phases (any failure exits non-zero; no phase catches and carries on):
 
   1. identify   the card (nvidia-smi name and power limit), torch and CUDA
-                versions, whether this Python has tensorstore (what a
-                reader of orbax directories would build on), and the
-                kernel build (one nvcc per source, all
-                started together) with its time and ptxas resource lines.
+                versions, and the kernel build (one nvcc per source, all
+                started together, and beside them g++ for the orbax
+                reader's host C++) with its time and ptxas resource lines.
   2. kernels    every hand kernel against its plain PyTorch version on
                 the card, in bf16 and fp32, at every shape the flagship
                 paths give it: K1 (conv5x3) at each pyramid conv and its
@@ -144,6 +143,15 @@ Phases (any failure exits non-zero; no phase catches and carries on):
                 run-to-run spread (the card's atomics; 0 where it is 0);
                 on the CPU one blind request through each route at
                 flagship widths on a short segment, equal bit for bit.
+                The same weights as an orbax checkpoint directory
+                (``utils/orbax_dir.py``'s writer) through BABE.load: its
+                EMA bit-equal to the .ckpt route's, one blind request
+                (counters zeroed just before, read just after: K1, K2,
+                K2's backward and the fit launched) within PT_K times the
+                .ckpt route's own spread of the .ckpt requests.  First the
+                committed orbax fixture (tests/data/, written by orbax's
+                OCDBT layout): every leaf's sha256 as recorded, and the
+                zstd decoder's rate over its chunks.
   6. long       one whole recording: the flagship (bf16) and the
                 full-width denoiser from seeds, ``BABE.load(ckpt,
                 denoiser_checkpoint=...)``, one blind ``enhance(x, 44100,
@@ -159,6 +167,10 @@ Phases (any failure exits non-zero; no phase catches and carries on):
                 peak memory, the device's busy share over one profiled
                 step, each step's launches held to the network's counts
                 (remat recompute included), params and EMA that moved,
+                the state saved with exp.ckpt_backend=orbax and a fresh
+                trainer on the card resumed from the directory (params,
+                buffers, EMA, Adam's moments, the counts and it bit-equal;
+                the save and resume seconds and the directory's bytes),
                 then the written .ckpt loaded with BABE.load on the card
                 answering one blind request at tester.T = LOAD_CHECK_T;
                 one more step through a world-size-1 NCCL mesh (the
@@ -249,6 +261,7 @@ import json
 import math
 import os
 import pickle
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -573,18 +586,33 @@ def phase_identify(kernels):
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
-    # the orbax slice's question: a reader of orbax directories would build
-    # on tensorstore (checked without importing orbax)
-    import importlib.util
+    # the host C++ of the orbax reader (g++), built beside the kernels
+    import threading
 
-    have = importlib.util.find_spec("tensorstore") is not None
-    log(f"tensorstore: {'present' if have else 'absent'} in this Python "
-        f"({sys.version.split()[0]})")
+    from babe_tpu_torch import native
+
+    host: dict = {}
+
+    def build_host():
+        t = time.perf_counter()
+        try:
+            native.lib()
+        except BaseException as e:  # re-raised once the kernels are built
+            host["error"] = e
+        host["s"] = time.perf_counter() - t
+
+    th = threading.Thread(target=build_host)
     t0 = time.perf_counter()
+    th.start()
     kernels.build()
+    th.join()
+    if "error" in host:
+        raise host["error"]
     log(f"kernel build: {time.perf_counter() - t0:.1f} s wall "
         f"(one nvcc per source, in parallel; per source "
-        f"{ {k: round(v, 1) for k, v in kernels.BUILD_SECONDS.items()} })")
+        f"{ {k: round(v, 1) for k, v in kernels.BUILD_SECONDS.items()} }); "
+        f"the orbax reader's host C++ (native/zstd.cpp, g++) "
+        f"{host['s']:.1f} s beside them")
     for name, text in kernels.BUILD_LOG.items():
         if name == "filter_fit":  # 32 instantiations: the kernels phase
             continue              # sums them up (_fit_ptxas_gate)
@@ -3726,29 +3754,45 @@ def phase_pt(results: dict, T: int = 8):
     largest difference between two runs of one route (0 where the card
     repeats itself).  On the CPU, where a run repeats itself bit for bit,
     one blind request through each route at flagship widths on a short
-    segment (16384 samples, tester.T = 2) must be equal bit for bit."""
+    segment (16384 samples, tester.T = 2) must be equal bit for bit.
+    Before the requests: the committed orbax fixture (``_orbax_fixture``);
+    after them one request through an orbax directory of the same weights
+    (the module doc)."""
     import torch
 
+    from babe_tpu_torch import kernels
     from babe_tpu_torch.api import BABE
     from babe_tpu_torch.config import default_config
     from babe_tpu_torch.models.cqtdiff import CQTDiffPlus
+    from babe_tpu_torch.utils.orbax_dir import write_orbax
     from babe_tpu_torch.utils.weights import to_flax
 
+    t0 = time.perf_counter()
+    _orbax_fixture(results)
+    log(f"pt: the fixture's checks {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     args = default_config(["network=cqtdiff+_ckpt", "tester=blind_bwe"])
     tmp = tempfile.mkdtemp(prefix="babe_pt_")
     model = CQTDiffPlus.from_config(args).init(seed=0, device="cpu")
     params, buffers = to_flax(model.net)
     ckpt, pt = os.path.join(tmp, "seed0.ckpt"), os.path.join(tmp, "seed0.pt")
+    payload = {"it": 5, "params": params, "buffers": buffers, "ema": params}
     with open(ckpt, "wb") as f:
-        pickle.dump({"it": 5, "params": params, "buffers": buffers,
-                     "ema": params, "args": args.to_dict()}, f)
+        pickle.dump({**payload, "args": args.to_dict()}, f)
     torch.save({"it": 5, "ema": _reference_state_dict(model.net)}, pt)
+    t1 = time.perf_counter()
+    ox = write_orbax(os.path.join(tmp, "seed0.orbax"), payload,
+                     args.to_dict())
+    ox_write = time.perf_counter() - t1
+    ox_bytes = _dir_bytes(ox)
     del model
     try:
         over = [f"tester.T={T}"]
         routes = {"ckpt": BABE.load(ckpt, overrides=over),
                   "pt": BABE.load(pt, overrides=over)}
+        t1 = time.perf_counter()
+        mo = BABE.load(ox, overrides=over)
+        ox_load = time.perf_counter() - t1
         mc, mp = routes["ckpt"], routes["pt"]
         sc, sp = (m._tester.model.net.state_dict() for m in (mc, mp))
         same_w = set(sc) == set(sp) and all(torch.equal(sc[k], sp[k])
@@ -3777,7 +3821,33 @@ def phase_pt(results: dict, T: int = 8):
                  for i, (_, a) in enumerate(req_runs)
                  for _, b in req_runs[i + 1:]]
         finite = all(np.isfinite(a).all() for _, a in den_runs + req_runs)
-        del mc, mp, routes
+        so = mo._tester.model.net.state_dict()
+        ox_same = (set(so) == set(sc) and all(torch.equal(so[k], sc[k])
+                                              for k in sc)
+                   and mo.args.network == mc.args.network
+                   and mo.args.exp == mc.args.exp
+                   and mo._tester.it == 5)
+        kernels.reset_launch_counts()
+        t1 = time.perf_counter()
+        ox_out = mo.enhance(x, fs, seed=0)[0]
+        ox_req = time.perf_counter() - t1
+        ox_launch = {k: kernels.LAUNCHES[k] for k in ORBAX_REQUEST_PATH}
+        ox_cross = max(float(np.abs(ox_out - a).max())
+                       for r, a in req_runs if r == "ckpt")
+        ox_ok = (ox_same and bool(np.isfinite(ox_out).all())
+                 and ox_cross <= PT_K * own
+                 and all(v > 0 for v in ox_launch.values()))
+        log(f"pt: the same weights as an orbax directory (plain layout, "
+            f"{ox_bytes} bytes, written in {ox_write:.2f} s, BABE.load "
+            f"{ox_load:.2f} s): EMA and config equal to the .ckpt route's "
+            f"{ox_same}; one blind request (T={T}, {ox_req:.2f} s): vs the "
+            f".ckpt requests "
+            f"max |diff| {ox_cross:.3e} (bar {PT_K:g} x {own:.3e}), "
+            f"launches {ox_launch} {'ok' if ox_ok else 'FAIL'}")
+        results["orbax_pt"] = {"bytes": ox_bytes, "write_s": ox_write,
+                               "load_s": ox_load, "max_diff": ox_cross,
+                               "own_diff": own, "launches": ox_launch}
+        del mc, mp, mo, routes
         torch.cuda.empty_cache()
         t1 = time.perf_counter()
         short = ["tester.T=2", "exp.audio_len=16384"]
@@ -3787,12 +3857,10 @@ def phase_pt(results: dict, T: int = 8):
         cout = [m.enhance(xs, fs, seed=0)[0] for m in cpu]
         cpu_equal = bool(np.array_equal(cout[0], cout[1]))
     finally:
-        for p_ in (ckpt, pt):
-            os.remove(p_)
-        os.rmdir(tmp)
+        shutil.rmtree(tmp, ignore_errors=True)
     card_ok = den_cross <= PT_K * den_own and cross <= PT_K * own
     good = (same_w and same_cfg and finite and card_ok and cpu_equal
-            and bool(np.isfinite(cout[0]).all()))
+            and bool(np.isfinite(cout[0]).all()) and ox_ok)
     log(f"pt: seeded flagship weights as .ckpt and as a reference .pt, "
         f"both through BABE.load: weights equal {same_w}, configs equal "
         f"{same_cfg} (frame oct_pow2); on the card (bar: .pt vs .ckpt <= "
@@ -3809,7 +3877,77 @@ def phase_pt(results: dict, T: int = 8):
                      "card_max_diff": cross, "card_own_diff": own,
                      "cpu_bit_equal": cpu_equal}
     if not good:
-        raise RuntimeError("pt: the .pt route differs from the .ckpt route")
+        raise RuntimeError("pt: the .pt or the orbax route differs from the "
+                           ".ckpt route")
+
+
+# the kernels the orbax route's blind request must launch
+ORBAX_REQUEST_PATH = ("conv5x3", "fused_stage", "fused_stage_bwd",
+                      "filter_fit")
+ORBAX_FIXTURE = os.path.join("tests", "data", "torch_orbax_fixture.orbax")
+ORBAX_DECODE_PASSES = 40
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def _leaf_digests(tree, prefix: str = "") -> dict:
+    """{dotted key path: sha256, dtype, shape} of a restored tree's arrays
+    and numbers, as tests/torch_orbax_fixture.py records them."""
+    import hashlib
+
+    if isinstance(tree, (dict, list, tuple)):
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        out = {}
+        for k, v in items:
+            out.update(_leaf_digests(v, f"{prefix}.{k}" if prefix else str(k)))
+        return out
+    if tree is None:
+        return {}
+    a = np.ascontiguousarray(np.asarray(tree))
+    return {prefix: {"sha256": hashlib.sha256(a.tobytes()).hexdigest(),
+                     "dtype": a.dtype.str, "shape": list(a.shape)}}
+
+
+def _orbax_fixture(results: dict) -> None:
+    """The committed orbax fixture (written by orbax, OCDBT layout) read
+    with the port's reader: every leaf's sha256 as recorded; then the zstd
+    decoder's rate over its stored chunks, ORBAX_DECODE_PASSES passes on
+    one thread."""
+    from babe_tpu_torch import native
+    from babe_tpu_torch.utils.orbax_dir import read_orbax, stored_chunks
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    fx = os.path.join(root, ORBAX_FIXTURE)
+    with open(fx[:-len(".orbax")] + ".json") as f:
+        rec = json.load(f)
+    t0 = time.perf_counter()
+    got = _leaf_digests(read_orbax(fx))
+    t_read = time.perf_counter() - t0
+    chunks = list(stored_chunks(fx).values())
+    sizes = [len(native.zstd_decompress(c)) for c in chunks]
+    t0 = time.perf_counter()
+    for _ in range(ORBAX_DECODE_PASSES):
+        for c in chunks:
+            native.zstd_decompress(c)
+    dt = time.perf_counter() - t0
+    rate = ORBAX_DECODE_PASSES * sum(sizes) / dt / 1e6
+    ok = got == rec["leaves"]
+    log(f"pt: orbax fixture {ORBAX_FIXTURE} ({_dir_bytes(fx)} bytes, "
+        f"OCDBT): {len(got)} leaves, sha256 as recorded {ok}, read_orbax "
+        f"{t_read:.3f} s; zstd decode of its {len(chunks)} chunks "
+        f"({sum(len(c) for c in chunks)} bytes to {sum(sizes)}) "
+        f"{rate:.1f} MB/s over {ORBAX_DECODE_PASSES} passes, one thread, "
+        f"host of {smi_line()}")
+    results["orbax_fixture"] = {"leaves_equal": ok, "decode_mb_s": rate,
+                                "read_s": t_read}
+    if not ok:
+        bad = sorted(k for k in set(got) | set(rec["leaves"])
+                     if got.get(k) != rec["leaves"].get(k))
+        raise RuntimeError(f"pt: the orbax fixture decodes to other leaves: "
+                           f"{bad[:5]}")
 
 
 LONG_FS = 44100       # the long request's input rate (resampled to 22.05k)
@@ -4118,6 +4256,7 @@ def phase_train(results: dict, steps: int = 5, untimed: int = 2):
             raise RuntimeError("train: no checkpoint written")
         log(f"train: checkpoint {os.path.basename(ckpt)} "
             f"({os.path.getsize(ckpt) / 2**20:.0f} MiB)")
+        _orbax_resume(tr, results)
         del tr, snap
         torch.cuda.empty_cache()
         t1 = time.perf_counter()
@@ -4148,6 +4287,67 @@ def phase_train(results: dict, steps: int = 5, untimed: int = 2):
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _orbax_resume(tr, results: dict) -> None:
+    """The train phase's trainer saved with exp.ckpt_backend=orbax (the
+    port's writer: zarr arrays of raw zstd blocks, the plain layout), then
+    a fresh trainer of the same config on the card resumed from the
+    directory: params, buffers, EMA, Adam's moments, the counts and it
+    bit-equal to the saved state (the state, not a further step: the
+    weight gradients' atomics make two steps differ)."""
+    import shutil
+
+    import torch
+
+    from babe_tpu_torch.setup import setup_diff_parameters, setup_network
+    from babe_tpu_torch.training.trainer import Trainer
+
+    t_all = time.perf_counter()
+    tr.args.exp["ckpt_backend"] = "orbax"
+    tr.ckpt_backend = "orbax"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = tr.save_checkpoint()
+    save_s = time.perf_counter() - t0
+    nbytes = _dir_bytes(path)
+    try:
+        t0 = time.perf_counter()
+        model = setup_network(tr.args)
+        fresh = Trainer(tr.args, None, model, setup_diff_parameters(
+            tr.args, cqt_hpf=model.apply_hpf_DC), device=tr.device)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        resumed = fresh.resume_from_checkpoint(path)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+
+    def same(a, b):
+        return set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
+
+    eq = {"params": same(fresh.params, tr.params),
+          "buffers": same(dict(fresh.net.named_buffers()),
+                          dict(tr.net.named_buffers())),
+          "ema": same(fresh.ema, tr.ema), "mu": same(fresh.mu, tr.mu),
+          "nu": same(fresh.nu, tr.nu),
+          "counts": (fresh.count, fresh.sched_count, fresh.it)
+          == (tr.count, tr.sched_count, tr.it)}
+    ok = resumed and all(eq.values())
+    log(f"train: the state saved with exp.ckpt_backend=orbax in "
+        f"{save_s:.2f} s ({nbytes} bytes, {nbytes / save_s / 1e6:.0f} MB/s),"
+        f" a fresh trainer built in {build_s:.2f} s and resumed from it on "
+        f"the card in {resume_s:.2f} s ({nbytes / resume_s / 1e6:.0f} MB/s),"
+        f" it={fresh.it}; bit-equal: {eq} {'ok' if ok else 'FAIL'}; "
+        f"{time.perf_counter() - t_all:.1f} s in all; card: {smi_line()}")
+    results["orbax_train"] = {"save_s": save_s, "resume_s": resume_s,
+                              "bytes": nbytes, "equal": eq}
+    del fresh, model
+    torch.cuda.empty_cache()
+    if not ok:
+        raise RuntimeError("train: the orbax resume is not bit-equal")
 
 
 NCCL_K = 4.0  # the NCCL step's bar, in plain steps' run-to-run spreads
