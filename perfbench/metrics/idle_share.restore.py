@@ -1,0 +1,8 @@
+"""idle_share.restore: share of the traced window with no operation on the
+device, %."""
+
+from perfbench.readers import idle_share
+
+
+def read(run):
+    return idle_share(run)
